@@ -1,5 +1,9 @@
 """Backend: device/precision/solver policy object (PyTorch port).
 
+The entry points (fem2d, fem2d_solve) use backend_cuda() when they are
+given no backend; the CPU is used only when the caller passes
+backend_cpu().
+
 The JAX package collapses the reference's HPCBackend{T,Ti,Device,Comm,
 Solver} into a dtype, an index type, an optional device mesh and a dense
 size threshold (multigridbarrier_tpu/backend.py).  The port keeps the same
@@ -24,10 +28,10 @@ class Backend:
         reference's correctness contract).
       itype: integer dtype of index tensors (the kernels take int32).
       device: the torch device every tensor is created on.
-      dense_threshold: levels with nf*m <= this many unknowns solve their
-        Newton systems with dense Cholesky.  The port has only the dense
-        route; levels above the threshold raise NotImplementedError (use
-        dense_threshold=1<<30 for the exact dense route at every level).
+      dense_threshold: levels with nf*m <= this many unknowns (and level
+        0) solve their Newton systems with dense Cholesky; the others with
+        the nested-dissection multifrontal Cholesky (solver/ndsolve.py).
+        dense_threshold=1<<30 gives the dense route at every level.
     """
 
     dtype: torch.dtype = torch.float64

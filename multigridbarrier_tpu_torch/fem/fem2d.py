@@ -17,7 +17,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..backend import Backend, backend_cpu
+from ..backend import Backend, backend_cuda
 from ..runtime import BlockDiagOp, ell_from_scipy, level_basis_from_csr, native
 from .geometry import Discretization, Geometry
 
@@ -199,10 +199,12 @@ def _barycentric(pts: np.ndarray, tri_verts: np.ndarray) -> np.ndarray:
 
 
 def fem2d(L: int = 2, K=None, backend: Backend | None = None) -> Geometry:
-    """Build the 2D multigrid FEM geometry on `backend` (default: CPU,
-    float64) — the port of multigridbarrier_tpu.fem.fem2d."""
+    """Build the 2D multigrid FEM geometry on `backend` — the port of
+    multigridbarrier_tpu.fem.fem2d.  The default is backend_cuda() (the
+    GPU, float64), which raises when there is none; pass backend_cpu()
+    for the CPU."""
     if backend is None:
-        backend = backend_cpu()
+        backend = backend_cuda()
 
     meshes = [_default_coarse() if K is None else _mesh_from_K(K)]
     for _ in range(L - 1):

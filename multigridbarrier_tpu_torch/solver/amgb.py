@@ -1,5 +1,5 @@
-"""amgb — the multigrid interior-point (barrier) solver, dense route (port
-of solver/amgb.py).
+"""amgb — the multigrid interior-point (barrier) solver (port of
+solver/amgb.py).
 
 Solves
 
@@ -14,17 +14,26 @@ R_l @ dv.
 
 One Newton step (_SolverCtx.step): barrier rows F0/F1/F2 by torch.func ->
 gradient contraction and node sum (kernel C) -> element Hessians
-(kernel A) -> dense Cholesky with matrix-free refinement (kernels B+C) ->
-damped Armijo line search that rejects non-finite steps.  The Newton loop
-and the line search are host loops: each Newton step syncs with the host
-a few times (Cholesky status, the decrement) and once per line-search
-trial.
+(kernel A) -> deduplicated values (kernel C's segment sum) -> a direct
+Newton direction -> damped Armijo line search that rejects non-finite
+steps.  The direction comes from one of two routes:
 
-Ported so far: phase 2 (the start point must be strictly feasible) with a
-dense direct solve on every level.  These raise NotImplementedError: an
-infeasible start (phase 1), mixed precision, a custom linear solver, and
-any level above the backend's dense_threshold (the fine-level ND solver is
-not ported yet; dense_threshold=1<<30 gives the exact dense route).
+* dense (level 0, and every level with nf*m <= backend.dense_threshold):
+  dense Cholesky with a shift ladder and matrix-free refinement (kernels
+  B+C), linsolve.dense_solve;
+* nested dissection (every other level): the multifrontal Cholesky of
+  ndsolve.py (kernels C and D) with a two-trip factor-preconditioned CG
+  polish on the exact pair-block matvec and a Jacobi fallback on a
+  non-finite direction (_NDLevel, the JAX _get_nd direction).
+
+The Newton loop and the line search are host loops: each Newton step
+syncs with the host for the decrement and once per line-search trial, and
+the dense route also for the Cholesky status; the nested-dissection
+factor and solve do not sync.
+
+Ported so far: phase 2 (the start point must be strictly feasible).
+These raise NotImplementedError: an infeasible start (phase 1), mixed
+precision, a custom linear solver and aux= columns.
 """
 
 from __future__ import annotations
@@ -40,9 +49,10 @@ import torch
 from torch.func import grad, hessian, vmap
 
 from ..fem.geometry import Geometry
-from ..runtime.cuda_kernels import he_assemble
+from ..runtime.cuda_kernels import he_assemble, row_gather, segment_sum
 from .convex import Convex, convex_Euclidian_power
-from .linsolve import LevelSystem, dense_solve
+from .linsolve import LevelSystem, dense_solve, he_to_vals, vals_table
+from .ndsolve import NDFactorizer, NDSymbolic, narrow_idx, node_coords
 
 # ----------------------------------------------------------------------------
 # Problem specification
@@ -154,6 +164,91 @@ def _masked_wsum(w, vals):
     return torch.sum(torch.where(w != 0, w * vals, torch.zeros_like(vals)))
 
 
+class _NDLevel:
+    """Nested-dissection Newton direction of one level: the JAX
+    _SolverCtx._get_nd state and make_direction(None, n_cg=2) — factor,
+    solve, a factor-preconditioned CG polish of N_CG trips on the exact
+    pair-block matvec, kept only where its quadratic model is lower, and a
+    Jacobi fallback when the direction is not finite.  Branch-free on the
+    device: nothing here syncs with the host."""
+
+    N_CG = 2  # CG trips of the polish (the JAX CPU default MGB_ND_PCG=2)
+
+    def __init__(self, basis, nf: int, x: torch.Tensor):
+        m = basis.m
+        idx = basis.idx.cpu().numpy()
+        t0 = time.perf_counter()
+        sym = NDSymbolic(idx, m, nf, node_coords(idx, m, x.cpu().numpy(), basis.nq))
+        self.symbolic_s = time.perf_counter() - t0  # host seconds, cached per level
+        dev = basis.idx.device
+        self.fz = NDFactorizer(sym, dev, x.dtype)
+        self.m, self.nf = m, nf
+        self.pair_j = narrow_idx(sym.pair_j, dev)
+        self.pair_vidx = narrow_idx(sym.pair_vidx, dev)
+        self.pair_off = narrow_idx(sym.pair_off, dev)
+        # node-major per-dof diagonal ids: vals[(f*nf+f)*nuniq + diag_pid]
+        self.diag_ids = narrow_idx(
+            (
+                (np.arange(nf, dtype=np.int64) * (nf + 1))[None, :] * sym.nuniq
+                + sym.diag_pid[:, None]
+            ).reshape(-1),
+            dev,
+        )
+
+    def matvec(self, vpair: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+        """Exact A @ x from the deduplicated pair blocks vpair (npair, nf*nf);
+        x and the result are node-major (m*nf,)."""
+        nf = self.nf
+        xj = row_gather(xv.reshape(self.m, nf), self.pair_j)
+        contrib = torch.einsum("pfg,pg->pf", vpair.reshape(-1, nf, nf), xj)
+        return segment_sum(contrib.contiguous(), None, self.pair_off).reshape(-1)
+
+    def direction(self, vals: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
+        """vals (HostPattern layout), gv (nf, m+1) -> dvp (nf, m+1), the
+        Newton direction for -gv with a zero pad slot."""
+        m, nf = self.m, self.nf
+        b = -gv[:, :m].T.reshape(-1)
+        fac = self.fz.factor(vals)
+        vpair = row_gather(vals, self.pair_vidx)
+
+        def apply_fac(r):
+            return self.fz.solve(fac, r)
+
+        def matvec(v):
+            return self.matvec(vpair, v)
+
+        xv = apply_fac(b)
+        zero = b.new_zeros(())
+        one = b.new_ones(())
+        r = b - matvec(xv)
+        p = apply_fac(r)
+        rz = torch.dot(r, p)
+        xv_cg = xv
+        for _ in range(self.N_CG):
+            Ap = matvec(p)
+            pAp = torch.dot(p, Ap)
+            ok = torch.isfinite(pAp) & (pAp > 0) & torch.isfinite(rz) & (rz > 0)
+            al = torch.where(ok, rz / torch.where(ok, pAp, one), zero)
+            xv_cg = xv_cg + al * p
+            r = r - al * Ap
+            z2 = apply_fac(r)
+            rz2 = torch.dot(r, z2)
+            beta = torch.where(ok & (rz2 > 0), rz2 / torch.where(ok, rz, one), zero)
+            p = torch.where(ok, z2 + beta * p, p)
+            rz = rz2
+
+        def q_of(v):
+            return 0.5 * torch.dot(v, matvec(v)) - torch.dot(b, v)
+
+        # keep the polished direction only where its quadratic model is lower
+        q_ir, q_cg = q_of(xv), q_of(xv_cg)
+        take_cg = torch.isfinite(xv_cg).all() & torch.isfinite(q_cg) & (q_cg <= q_ir)
+        xv = torch.where(take_cg, xv_cg, xv)
+        dg = row_gather(vals, self.diag_ids).abs().clamp_min(1e-300)
+        xv = torch.where(torch.isfinite(xv).all(), xv, b / dg)
+        return torch.cat([xv.reshape(m, nf).T, xv.new_zeros((nf, 1))], dim=1)
+
+
 # ----------------------------------------------------------------------------
 # Solver context
 # ----------------------------------------------------------------------------
@@ -204,15 +299,15 @@ class _SolverCtx:
         self.backend = g.backend
         self._bases = g.bases[subspace]
         nf = spec.nfields
-        for lvl, basis in enumerate(self._bases):
-            if lvl > 0 and nf * basis.m > self.backend.dense_threshold:
-                raise NotImplementedError(
-                    f"level {lvl} has nf*m = {nf * basis.m} > dense_threshold "
-                    f"= {self.backend.dense_threshold}: its fine-level solver "
-                    "(nested-dissection Cholesky) is not ported to PyTorch "
-                    "yet; pass a backend with dense_threshold=1<<30 for the "
-                    "exact dense route at every level"
-                )
+        # Routing (the JAX _nd_enabled): level 0 and levels with
+        # nf*m <= dense_threshold solve densely; every other level through
+        # nested dissection, its symbolic phase built at first use.
+        self._nd_route = {
+            lvl for lvl, basis in enumerate(self._bases)
+            if lvl > 0 and nf * basis.m > self.backend.dense_threshold
+        }
+        self.nd = {}  # level -> _NDLevel
+        self._tables = {}  # level -> linsolve.ValsTable
 
         # Element-local operator tensors per level with the field embedding
         # baked in: P_l[e, q, j, fj*nl + a] = (D_{op_j} R_l) restricted to
@@ -260,10 +355,19 @@ class _SolverCtx:
             gf.reshape(nelem, nf, nl).permute(0, 2, 1).reshape(-1, nf)
         ).T  # (nf, m+1), pad row zeroed
 
-        # element Hessians (kernel A) and the dense direction
+        # element Hessians (kernel A) and the Newton direction
         Y2w = vmap(self._F2)(x, y) * w[:, None, None]  # (n, k, k)
         He = he_assemble(Pl, Y2w.reshape(nelem, nq, k, k).contiguous())
-        dvp = dense_solve(LevelSystem(He, idx, m, basis.scatter_idx), nf, -gv)
+        if level not in self._tables:
+            self._tables[level] = vals_table(idx, m, nf)
+        table = self._tables[level]
+        if level in self._nd_route:
+            if level not in self.nd:
+                self.nd[level] = _NDLevel(basis, nf, x)
+            dvp = self.nd[level].direction(he_to_vals(He, table), gv)
+        else:
+            sys_ = LevelSystem(He, idx, m, basis.scatter_idx, table)
+            dvp = dense_solve(sys_, nf, -gv)
         lam2_t = -torch.dot(gv.reshape(-1), dvp.reshape(-1))
 
         # direction in Dz-space (fused contraction)

@@ -4,10 +4,13 @@ The Newton system of one level
 
     H = R' (D' diag(w .* F2) D) R      (SPD on the barrier interior)
 
-is held as per-element Hessian blocks He (nelem, nf*nl, nf*nl).  It is
-scatter-added into a global dense matrix, factored with Cholesky and
+is held as per-element Hessian blocks He (nelem, nf*nl, nf*nl).  They are
+reduced to the deduplicated value array of hostsolve.HostPattern by a
+segment sum without atomics (kernel C's segment_sum), each value is placed
+once into a global dense matrix, which is factored with Cholesky and
 refined with matrix-free residuals H v = table_sum(element_matvec(He, v))
-(kernels B and C of runtime/cuda_kernels.py on the GPU).
+(kernels B and C of runtime/cuda_kernels.py on the GPU).  So the assembled
+matrix is the same bit for bit from one run to the next.
 
 Vectors use the field-major layout (nf, m+1): m real coefficients plus one
 zero pad slot per field.  The multigrid-preconditioned CG solver of the
@@ -16,11 +19,43 @@ JAX package is not ported yet.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..runtime.cuda_kernels import element_matvec, table_sum
+from ..runtime.cuda_kernels import element_matvec, segment_sum, table_sum
+from .hostsolve import HostPattern
+
+
+class ValsTable(NamedTuple):
+    """A HostPattern's segment tables on the device.
+
+    src: (nelem*C*C,) int32 flat He positions sorted stably by vals slot
+    off: (nseg+1,) int32 offsets into src, one per vals slot
+    dense_pos: (nseg,) int64 flat position of each slot in the N x N matrix
+    """
+
+    src: torch.Tensor
+    off: torch.Tensor
+    dense_pos: torch.Tensor
+
+
+def vals_table(idx: torch.Tensor, m: int, nf: int) -> ValsTable:
+    """Build the HostPattern of a level on the host and move its tables to
+    idx's device."""
+    pat = HostPattern(idx.cpu().numpy(), m, nf)
+    dev = idx.device
+    return ValsTable(
+        torch.as_tensor(pat.seg_src, device=dev),
+        torch.as_tensor(pat.seg_off, device=dev),
+        torch.as_tensor(pat.dense_pos, device=dev),
+    )
+
+
+def he_to_vals(He: torch.Tensor, table: ValsTable) -> torch.Tensor:
+    """Element Hessians -> deduplicated values (HostPattern layout
+    ((f1*nf+f2)*nuniq + pid)), each slot summed in element order."""
+    return segment_sum(He.reshape(-1), table.src, table.off)
 
 
 class LevelSystem(NamedTuple):
@@ -30,12 +65,14 @@ class LevelSystem(NamedTuple):
     idx: (nelem, nl) int32 global node ids (pad slot = m)
     m:   subspace size
     scatter_idx: (m+1, width) int32 node-major gather table
+    table: the level's ValsTable (built from idx when None)
     """
 
     He: torch.Tensor
     idx: torch.Tensor
     m: int
     scatter_idx: torch.Tensor
+    table: Optional[ValsTable] = None
 
 
 def _node_sum(sys_: LevelSystem, flat: torch.Tensor) -> torch.Tensor:
@@ -62,19 +99,17 @@ def diag_of(sys_: LevelSystem) -> torch.Tensor:
 
 
 def dense_assemble(sys_: LevelSystem, nf: int) -> torch.Tensor:
-    """Scatter element Hessians into the global dense matrix of size
-    N = nf*(m+1), with identity on pad rows (their He entries are zero by
-    construction, so this keeps the matrix SPD)."""
-    He, idx, m = sys_.He, sys_.idx, sys_.m
-    nelem, nl = idx.shape
+    """The global dense matrix of size N = nf*(m+1): element Hessians
+    reduced to deduplicated values, each placed once (no atomics), with
+    identity on pad rows (their He entries are zero by construction, so
+    this keeps the matrix SPD)."""
+    m = sys_.m
+    table = sys_.table if sys_.table is not None else vals_table(sys_.idx, m, nf)
     N = nf * (m + 1)
-    fid = (
-        torch.arange(nf, device=idx.device)[None, :, None] * (m + 1)
-        + idx.long()[:, None, :]
-    ).reshape(nelem, nf * nl)
-    flat_ids = (fid[:, :, None] * N + fid[:, None, :]).reshape(-1)
-    H = He.new_zeros(N * N).index_add_(0, flat_ids, He.reshape(-1)).reshape(N, N)
-    pad = torch.arange(nf, device=idx.device) * (m + 1) + m
+    H = sys_.He.new_zeros(N * N)
+    H[table.dense_pos] = he_to_vals(sys_.He, table)
+    H = H.reshape(N, N)
+    pad = torch.arange(nf, device=H.device) * (m + 1) + m
     H[pad, pad] += 1.0
     return H
 

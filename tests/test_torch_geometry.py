@@ -34,7 +34,7 @@ def _assert_same_arrays(aj: dict, at: dict):
 @pytest.mark.parametrize("L", [1, 2, 3, 4])
 def test_fem2d_arrays_match_jax(L):
     gj = mgb.fem2d(L=L)
-    gt = mt.fem2d(L=L)
+    gt = mt.fem2d(L=L, backend=mt.backend_cpu())
     aj = interop.geometry_to_arrays(gj)
     at = interop.geometry_to_arrays(gt)
     _assert_same_arrays(aj, at)
@@ -46,7 +46,7 @@ def test_fem2d_arrays_match_jax(L):
 
 @pytest.mark.parametrize("L", [2, 3])
 def test_interop_round_trip(L):
-    gt = mt.fem2d(L=L)
+    gt = mt.fem2d(L=L, backend=mt.backend_cpu())
     arrays = interop.geometry_to_arrays(gt)
     g2 = interop.geometry_from_arrays(arrays, mt.backend_cpu())
     _assert_same_arrays(arrays, interop.geometry_to_arrays(g2))
@@ -61,13 +61,14 @@ def test_interop_from_jax_geometry_matches_port_fem2d():
         interop.geometry_to_arrays(mgb.fem2d(L=3)), mt.backend_cpu()
     )
     _assert_same_arrays(
-        interop.geometry_to_arrays(mt.fem2d(L=3)), interop.geometry_to_arrays(g)
+        interop.geometry_to_arrays(mt.fem2d(L=3, backend=mt.backend_cpu())),
+        interop.geometry_to_arrays(g),
     )
 
 
 def test_level_basis_operators_match_jax():
     """R v and R' y of every level agree with the JAX LevelBasis."""
-    gj, gt = mgb.fem2d(L=3), mt.fem2d(L=3)
+    gj, gt = mgb.fem2d(L=3), mt.fem2d(L=3, backend=mt.backend_cpu())
     rng = np.random.default_rng(0)
     for bj, bt in zip(gj.bases["dirichlet"], gt.bases["dirichlet"]):
         v = rng.standard_normal((bt.m, 2))

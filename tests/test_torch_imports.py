@@ -29,7 +29,9 @@ MODULES = [
     "multigridbarrier_tpu_torch.runtime.native",
     "multigridbarrier_tpu_torch.solver.amgb",
     "multigridbarrier_tpu_torch.solver.convex",
+    "multigridbarrier_tpu_torch.solver.hostsolve",
     "multigridbarrier_tpu_torch.solver.linsolve",
+    "multigridbarrier_tpu_torch.solver.ndsolve",
 ]
 
 
@@ -55,6 +57,14 @@ def test_backend_cuda_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mt.backend_cuda()
+
+
+def test_fem2d_defaults_to_the_card(monkeypatch):
+    """fem2d with no backend builds on backend_cuda(): without a GPU it
+    raises instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt.fem2d(L=2)
 
 
 def test_backend_defaults():

@@ -136,7 +136,7 @@ def _stage_its(log, t_max):
 
 def test_fem2d_L3_solve_matches_jax():
     sj = mgb.amgb(mgb.fem2d(L=3), p=1.0)
-    st = mt.amgb(mt.fem2d(L=3), p=1.0)
+    st = mt.amgb(mt.fem2d(L=3, backend=mt.backend_cpu()), p=1.0)
     assert st.SOL_main.its.tolist() == sj.SOL_main.its.tolist()
     cj, ct = float(sj.SOL_main.c_dot_Dz[-1]), float(st.SOL_main.c_dot_Dz[-1])
     assert abs(ct - cj) <= 1e-9 * abs(cj)
@@ -156,7 +156,7 @@ def test_fem2d_L4_solve_matches_exact_objective():
 
 
 def test_amgb_accepts_numpy_start_point():
-    g = mt.fem2d(L=2)
+    g = mt.fem2d(L=2, backend=mt.backend_cpu())
     s_default = mt.amgb(g, p=1.0)
     x = g.x.numpy()
     z0 = np.stack([np.sum(x * x, axis=1), np.full(len(x), 100.0)], axis=1)
@@ -165,10 +165,8 @@ def test_amgb_accepts_numpy_start_point():
     assert s_np.SOL_main.c_dot_Dz[-1] == s_default.SOL_main.c_dot_Dz[-1]
 
 
-def test_unported_routes_raise():
-    g = mt.fem2d(L=3)
-    with pytest.raises(NotImplementedError, match="dense_threshold"):
-        mt.amgb(mt.fem2d(L=3, backend=mt.backend_cpu(dense_threshold=50)), p=1.0)
+def test_unported_routes_raise(monkeypatch):
+    g = mt.fem2d(L=3, backend=mt.backend_cpu())
     with pytest.raises(NotImplementedError, match="mixed"):
         mt.amgb(g, p=1.0, mixed=True)
     with pytest.raises(NotImplementedError, match="linear_solver"):
@@ -179,3 +177,8 @@ def test_unported_routes_raise():
         mt.amgb(g, p=1.0, z0=z0)
     with pytest.raises(NotImplementedError):
         mt.backend_cpu(mesh=object())
+    # the entry point's default is the card: without one it raises rather
+    # than solve on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mt.fem2d_solve(L=2, p=1.0)
