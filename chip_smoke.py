@@ -11,12 +11,23 @@ Phases, one printed line each (or a few):
   2. each kernel against its plain PyTorch version on the card, float64
      and float32 (TF32 off), at the main-path shapes of fem2d L=6 and L=7
      (the nested-dissection gathers and sums of the L=7 fine level among
-     them) and at small or probe shapes, with median times over 30 runs of
-     the kernel, its plain version and, where one exists, the one PyTorch
-     call that computes the same function (timed as a yardstick only).
+     them: the fused front assembly of the largest group, the forward
+     sweep's in-place update, He -> vals with its long pad runs) and at
+     small or probe shapes (a long-run case with NaN and zero runs, wide
+     rows with an odd lane count and an unaligned base), with median times
+     over 30 runs of the kernel, its plain version and, where one exists,
+     the one PyTorch call that computes the same function (timed as a
+     yardstick only).  For kernels C and D it also times the planned
+     launch (GatherPlan / SegmentPlan) beside the general wrapper, and the
+     host microseconds per call of both and of the library call (5 rounds of
+     200 calls without a synchronize).
      A he_assemble, B element_matvec and C table_sum agree to
      max|k-p|/max|p| <= 1e-12 (f64) and 1e-5 (f32); C's segment_sum and
-     D's row_gather/take_along_rows exactly;
+     segment_add_ and D's row_gather/take_along_rows exactly, NaN for NaN;
+     then one front group's fused assembly, one sweep gather and one
+     in-place sweep update are recorded into a CUDA graph and replayed
+     twice on refilled inputs, and must equal the eager results exactly
+     (kernels C and D launch on the capturing stream with no host sync);
   3. fem2d_solve(L=5, p=1.0) on the default backend: every level dense;
      c_dot_Dz within 5e-7 rel of 27.360702531510;
   4. fem2d L=6 with dense_threshold=1<<30, a warm-up run and a timed run:
@@ -53,12 +64,13 @@ from multigridbarrier_tpu_torch.solver.ndsolve import NDSymbolic, node_coords
 C_EXACT = {5: 27.360702531510, 6: 15.4183231432}
 FLOOR_BAND_7 = (9.415747, 9.415769)  # tests/test_ground_truth.py FLOOR_BAND[7]
 TOL = {"float64": 1e-12, "float32": 1e-5}
-EXACT = ("segment_sum", "row_gather", "take_along_rows")
+EXACT = ("segment_sum", "segment_add_", "row_gather", "take_along_rows")
 REPLACES = {
     "he_assemble": "multigridbarrier_tpu/runtime/pallas_kernels.py:56",
     "element_matvec": "tools/probe_pallas_gather.py:196",
     "table_sum": "tools/probe_pallas_gather.py:124",
     "segment_sum": "tools/probe_pallas_gather.py:124",
+    "segment_add_": "tools/probe_pallas_gather.py:124",
     "row_gather": "tools/probe_pallas_gather.py:83",
     "take_along_rows": "tools/probe_pallas_gather.py:58",
 }
@@ -67,11 +79,12 @@ SOURCE = {
     "element_matvec": "element_matvec.cu",
     "table_sum": "table_sum.cu",
     "segment_sum": "table_sum.cu",
+    "segment_add_": "table_sum.cu",
     "row_gather": "row_gather.cu",
     "take_along_rows": "row_gather.cu",
 }
 DENSE_PATH = ("he_assemble", "element_matvec", "table_sum", "segment_sum")
-ND_PATH = DENSE_PATH + ("row_gather",)
+ND_PATH = DENSE_PATH + ("segment_add_", "row_gather")
 # Roofline of one H100 SXM: 3.35 TB/s HBM3; 67 TFLOP/s for float32 outside
 # the tensor cores and for float64 (its tensor-core peak, the higher of the
 # data sheet's two float64 rates, so the bound is the least time).
@@ -103,18 +116,43 @@ def median_ms(fn, reps=30):
     return statistics.median(times)
 
 
+def host_us(fn, calls=200, rounds=5):
+    """Host microseconds per call: the wall of `calls` calls in a row with
+    no synchronize between them (the enqueue cost); the median of `rounds`
+    such rounds, after a warm-up."""
+    for _ in range(3):
+        fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class Case:
     """One kernel at one shape: kernel, plain version and library call as
-    closures over tensors on the card; bytes and flops for the bound."""
+    closures over tensors on the card; bytes and flops for the bound.
+    `planned` is the same launch through a plan, `timed` and
+    `timed_planned` what the timing loops call where the checked call must
+    not be repeated (an in-place update), `extra` more yardsticks to time
+    {label: closure}."""
 
-    def __init__(self, name, shape, kernel, plain, library, nbytes_, flops, dtype):
+    def __init__(self, name, shape, kernel, plain, library, nbytes_, flops, dtype,
+                 planned=None, timed=None, timed_planned=None, extra=None):
         self.name, self.shape, self.dtype = name, shape, dtype
         self.kernel, self.plain, self.library = kernel, plain, library
         self.bytes, self.flops = nbytes_, flops
+        self.planned, self.extra = planned, extra or {}
+        self.timed, self.timed_planned = timed or kernel, timed_planned or planned
+        self.expect = {}  # output row -> value it must hold (NaN: any NaN)
 
     def bound(self):
         t_bytes = self.bytes / HBM_BYTES_PER_S * 1e3
@@ -163,16 +201,54 @@ def table_case(basis, dtype, dev, rng):
     )
 
 
-def segment_case(label, src, lst, off, dst):
-    """kernel C's CSR entry; the library yardstick is index_add_ of src by
-    the destination id dst of each of its entries."""
+def segment_case(label, src, lst, off):
+    """kernel C's CSR entry.  Library yardsticks: one sparse product, the
+    CSR matrix of ones (off, lst) times src; and, as the text line's extra,
+    the two calls index_select then index_add_ by each entry's destination
+    (atomics, so not what the port could use).  Bytes count each distinct
+    source entry once."""
+    dev = src.device
     cnt = (off[1:] - off[:-1]).long()
+    nseg = cnt.numel()
+    dst = torch.repeat_interleave(torch.arange(nseg, device=dev), cnt)
+    pos = lst.long() if lst is not None else torch.arange(src.shape[0], device=dev)
+    csr = torch.sparse_csr_tensor(
+        off, lst if lst is not None else torch.arange(src.shape[0], dtype=torch.int32, device=dev),
+        torch.ones(pos.numel(), dtype=src.dtype, device=dev), size=(nseg, src.shape[0]))
+    plan = ck.SegmentPlan(lst, off, src.shape[0])
+    row = src[0].numel() * src.element_size()
     return Case(
         "segment_sum", label,
         lambda: ck.segment_sum(src, lst, off), lambda: ck.segment_sum_plain(src, lst, off),
-        lambda: src.new_zeros(cnt.numel()).index_add_(0, dst, src),
-        nbytes(src, off) + (nbytes(lst) if lst is not None else 0) + cnt.numel() * src.element_size(),
-        int(cnt.sum()), src.dtype,
+        lambda: csr @ src,
+        int(torch.unique(pos).numel()) * row + nbytes(off) + (nbytes(lst) if lst is not None else 0)
+        + nseg * row,
+        int(cnt.sum()) * src[0].numel(), src.dtype,
+        planned=lambda: plan(src),
+        extra={"index_select+index_add_ (two calls)": lambda: src.new_zeros(
+            (nseg,) + tuple(src.shape[1:])).index_add_(0, dst, torch.index_select(src, 0, pos))},
+    )
+
+
+def segment_add_case(label, bg, upd, lst, off, ids):
+    """kernel C's in-place entry at a forward-sweep shape; the library call
+    is index_add_ of the listed update entries by their destination dof
+    (entries and destinations gathered beforehand, so it is one call)."""
+    plan = ck.SegmentPlan(lst, off, upd.shape[0], ids=ids, ndst=bg.shape[0])
+    work = bg.clone()
+    cnt = (off[1:] - off[:-1]).long()
+    dst_of_entry = torch.repeat_interleave(ids.long(), cnt)
+    entries = upd[lst.long()]
+    return Case(
+        "segment_add_", label,
+        lambda: ck.segment_add_(bg.clone(), upd, lst, off, ids),
+        lambda: ck.segment_add_plain(bg.clone(), upd, lst, off, ids),
+        lambda: work.index_add_(0, dst_of_entry, entries),
+        lst.numel() * upd.element_size() + nbytes(lst, off, ids) + 2 * ids.numel() * bg.element_size(),
+        lst.numel() + ids.numel(), bg.dtype,
+        planned=lambda: plan.add_(bg.clone(), upd),
+        timed=lambda: ck.segment_add_(work, upd, lst, off, ids),
+        timed_planned=lambda: plan.add_(work, upd),
     )
 
 
@@ -180,12 +256,13 @@ def gather_case(label, v, idx):
     """kernel D's row_gather; bytes count each distinct source row once."""
     idx_l = idx.long().reshape(-1).clamp(0, v.shape[0] - 1)
     row = v[0].numel() * v.element_size()
+    plan = ck.GatherPlan(idx, v.shape[0])
     return Case(
         "row_gather", label,
         lambda: ck.row_gather(v, idx), lambda: ck.row_gather_plain(v, idx),
         lambda: torch.index_select(v, 0, idx_l).reshape(tuple(idx.shape) + tuple(v.shape[1:])),
         int(torch.unique(idx_l).numel()) * row + nbytes(idx) + idx.numel() * row,
-        0, v.dtype,
+        0, v.dtype, planned=lambda: plan(v),
     )
 
 
@@ -228,39 +305,84 @@ def kernel_cases(g6, g7, sym7, dtype, rng):
         table_case(g6.bases["dirichlet"][2], dtype, dev, rng),
     ]
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
-    # the largest front group's assembly at L=7: gather then segment sum
+    rnd = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)  # noqa: E731
+    # the largest front group's assembly at L=7: one segment sum that reads
+    # [vals | sb_flat | 1.0] through the group's source list
     big = max(range(sym7.ngroups), key=lambda d: len(sym7.asm_src[d]))
     nsrc = sym7.nvals + int(sym7.sb_off[-1]) + 1
-    buf = torch.tensor(rng.standard_normal(nsrc), dtype=dtype, device=dev)
+    buf = rnd(nsrc)
     asm_src, asm_off = i32(sym7.asm_src[big]), i32(sym7.asm_off[big])
-    gathered = ck.row_gather_plain(buf, asm_src)
-    cnt = (asm_off[1:] - asm_off[:-1]).long()
-    dst = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), cnt)
-    cases.append(segment_case(f"L7 front assembly, group {big}", gathered, None, asm_off, dst))
-    # He -> vals at the L=7 fine level (CSR with a source list)
+    cases.append(segment_case(f"L7 fused front assembly, group {big}", buf, asm_src, asm_off))
+    # He -> vals at the L=7 fine level; the pad-node slots are long runs of
+    # zeros, as kernel A leaves them
     pat = HostPattern(f7.idx.cpu().numpy(), f7.m, 2)
-    He = torch.tensor(rng.standard_normal(pat.full_ids.size), dtype=dtype, device=dev)
-    cases.append(segment_case("L7 He->vals", He, i32(pat.seg_src), i32(pat.seg_off),
-                              torch.as_tensor(pat.full_ids.reshape(-1), device=dev).long()))
+    He = rnd(pat.full_ids.size)
+    seg_src, seg_off = i32(pat.seg_src), i32(pat.seg_off)
+    long_runs = torch.nonzero(seg_off[1:] - seg_off[:-1] > 64)[:, 0].tolist()
+    for a in long_runs:
+        He[seg_src[int(seg_off[a]):int(seg_off[a + 1])].long()] = 0.0
+    cases.append(segment_case(f"L7 He->vals ({len(long_runs)} long runs)", He, seg_src, seg_off))
+    # the L=7 pair matvec's node sum (no list, two fields)
+    cases.append(segment_case("L7 pair matvec", rnd(len(sym7.pair_j), 2), None, i32(sym7.pair_off)))
+    # long runs beside short ones: zeros stay 0, NaN stays NaN
+    counts = np.concatenate([rng.integers(0, 6, 4000), [64, 65, 257, 2574, 700, 300]])
+    l_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    l_lst = rng.permutation(int(l_off[-1])).astype(np.int32)
+    l_src = rnd(int(l_off[-1]))
+    at = lambda a, b: torch.as_tensor(l_lst[l_off[a]:l_off[b]].astype(np.int64), device=dev)  # noqa: E731
+    l_src[at(4003, 4004)] = 0.0
+    l_src[at(4004, 4005)[5]] = float("nan")
+    l_src[at(4005, 4006)] = 0.0
+    case = segment_case("long runs with NaN and zeros", l_src, i32(l_lst), i32(l_off))
+    case.expect = {4003: 0.0, 4004: float("nan"), 4005: 0.0}
+    cases.append(case)
+    # the forward sweep's in-place boundary update of its largest group
+    fwd = max(range(sym7.ngroups), key=lambda d: len(sym7.bdw_src[d]))
+    w = sym7.bd_gids_w[fwd].reshape(-1)
+    cases.append(segment_add_case(
+        f"L7 forward sweep, group {fwd}", rnd(sym7.N + 2), rnd(w.size), i32(sym7.bdw_src[fwd]),
+        i32(sym7.bdw_off[fwd]), i32(sym7.bdw_ids[fwd])))
     sweep = max(range(sym7.ngroups), key=lambda d: sym7.sep_gids[d].size)
     cases += [
-        gather_case(f"L7 front assembly, group {big}", buf, asm_src),
-        gather_case(f"L7 sweep, group {sweep}",
-                    torch.tensor(rng.standard_normal(sym7.N + 2), dtype=dtype, device=dev),
-                    i32(sym7.sep_gids[sweep])),
-        gather_case("L7 pair matvec",
-                    torch.tensor(rng.standard_normal((sym7.m, 2)), dtype=dtype, device=dev),
-                    i32(sym7.pair_j)),
+        gather_case(f"L7 sweep, group {sweep}", rnd(sym7.N + 2), i32(sym7.sep_gids[sweep])),
+        gather_case("L7 pair matvec", rnd(sym7.m, 2), i32(sym7.pair_j)),
+        gather_case("L7 pair blocks from vals", rnd(sym7.nvals), i32(sym7.pair_vidx)),
+        gather_case(f"L7 front-assembly sources, group {big} (the main path of the "
+                    "two-launch assembly; now read inside segment_sum)", buf, asm_src),
     ]
     v = torch.tensor(rng.standard_normal((16130, 128)), dtype=dtype, device=dev)
     idx = rng.integers(0, 16130, 49152).astype(np.int32)
     cases.append(gather_case("probe (16130,128)[49152]", v, i32(idx)))
+    odd = rnd(16130 * 127 + 1)
+    cases.append(gather_case("odd lanes (16130,127)[49152], element loop",
+                             odd[:-1].reshape(16130, 127), i32(idx)))
+    cases.append(gather_case("unaligned base (16130,127)[49152], element loop",
+                             odd[1:].reshape(16130, 127), i32(idx)))
     cases.append(along_case("probe (16130,128)[49152] broadcast", v,
                             i32(np.broadcast_to(idx[:, None], (49152, 128)))))
     stray = rng.integers(-4, 16134, (4096, 128))
     cases.append(along_case("probe rows, stray indices", v, i32(stray)))
     cases.append(gather_case("probe rows, stray indices", v, i32(stray[:, 0])))
     return cases
+
+
+def same(out, ref, tol, expect):
+    """(ok, max abs err, rel err) of out against ref: equal shapes, NaN
+    exactly where ref has NaN, other entries finite and within tol of ref
+    relative to max|ref|; and the rows of `expect` hold their values."""
+    if out.shape != ref.shape:
+        return False, float("inf"), float("inf")
+    if not out.numel():
+        return True, 0.0, 0.0
+    nan = ref.isnan()
+    o, r = out.masked_fill(nan, 0.0), ref.masked_fill(nan, 0.0)
+    err = float((o - r).abs().max())
+    rel = err / max(float(r.abs().max()), 1e-300)
+    ok = bool((out.isnan() == nan).all()) and bool(torch.isfinite(o).all()) and rel <= tol
+    for row, val in expect.items():
+        got = out[row]
+        ok = ok and bool(got.isnan().all() if val != val else (got == val).all())
+    return ok, err, rel
 
 
 def check_kernels(g6, g7, sym7):
@@ -270,32 +392,88 @@ def check_kernels(g6, g7, sym7):
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
         for case in kernel_cases(g6, g7, sym7, dtype, np.random.default_rng(0)):
-            out, ref = case.kernel(), case.plain()
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max()) if out.numel() else 0.0
-            rel = err / max(float(ref.abs().max()), 1e-300) if out.numel() else 0.0
+            ref = case.plain()
             tol = 0.0 if case.name in EXACT else TOL[dname]
-            ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= tol
-            ms = median_ms(case.kernel)
+            ok, err, rel = same(case.kernel(), ref, tol, case.expect)
+            if case.planned:
+                ok = ok and same(case.planned(), ref, tol, case.expect)[0]
+            torch.cuda.synchronize()
+            ms = median_ms(case.timed)
             plain_ms = median_ms(case.plain)
             library_ms = median_ms(case.library) if case.library else None
             bound_ms, bound_by = case.bound()
             lib = f"{library_ms:.4f}" if library_ms is not None else "none"
-            print(
+            line = (
                 f"kernel {case.name} [{case.shape}] {dname}: max_abs_err={err:.3e} "
                 f"rel={rel:.3e} (tol {tol:g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}) "
-                f"{'ok' if ok else 'FAIL'}",
-                flush=True,
+                f"library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by})"
             )
+            fields = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+            if case.planned:
+                fields.update(
+                    planned_ms=median_ms(case.timed_planned), host_us=host_us(case.timed),
+                    planned_host_us=host_us(case.timed_planned),
+                    library_host_us=host_us(case.library),
+                )
+                line += (f" planned_ms={fields['planned_ms']:.4f} host_us={fields['host_us']:.2f} "
+                         f"planned_host_us={fields['planned_host_us']:.2f} "
+                         f"library_host_us={fields['library_host_us']:.2f}")
+            for label, fn in case.extra.items():
+                line += f" [{label}: ms={median_ms(fn):.4f} host_us={host_us(fn):.2f}]"
+            print(line + (" ok" if ok else " FAIL"), flush=True)
             if not ok:
                 raise RuntimeError(f"{case.name} {case.shape} {dname}: kernel disagrees with plain")
             if dtype == torch.float64 and case.name not in results:
-                results[case.name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=library_ms,
-                )
+                results[case.name] = fields
     return results
+
+
+def check_capture(sym7, dtype=torch.float64):
+    """Capture readiness of kernels C and D: the fused assembly of the
+    largest L=7 front group, a sweep gather and the forward sweep's in-place
+    update, through their plans, are recorded into one CUDA graph and
+    replayed twice on refilled inputs; each replay must equal the eager
+    wrappers bit for bit."""
+    dev = torch.device("cuda")
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    big = max(range(sym7.ngroups), key=lambda d: len(sym7.asm_src[d]))
+    fwd = max(range(sym7.ngroups), key=lambda d: len(sym7.bdw_src[d]))
+    nsrc = sym7.nvals + int(sym7.sb_off[-1]) + 1
+    n_upd = sym7.bd_gids_w[fwd].size
+    asm = (i32(sym7.asm_src[big]), i32(sym7.asm_off[big]))
+    bdw = (i32(sym7.bdw_src[fwd]), i32(sym7.bdw_off[fwd]), i32(sym7.bdw_ids[fwd]))
+    gids = i32(sym7.sep_gids[fwd])
+    asm_plan = ck.SegmentPlan(*asm, nsrc)
+    bdw_plan = ck.SegmentPlan(bdw[0], bdw[1], n_upd, ids=bdw[2], ndst=sym7.N + 2)
+    gat_plan = ck.GatherPlan(gids, sym7.N + 2)
+    rng = np.random.default_rng(7)
+    fill = lambda n: torch.tensor(rng.standard_normal(n), dtype=dtype, device=dev)  # noqa: E731
+    src, bg, upd = fill(nsrc), fill(sym7.N + 2), fill(n_upd)
+    asm_plan(src), gat_plan(bg), bdw_plan.add_(bg.clone(), upd)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fronts = asm_plan(src)
+        rhs = gat_plan(bg)
+        bdw_plan.add_(bg, upd)
+    recorded = {k: ck.LAUNCHES[k] - before[k] for k in ("segment_sum", "row_gather", "segment_add_")}
+    if recorded != {"segment_sum": 1, "row_gather": 1, "segment_add_": 1}:
+        raise RuntimeError(f"capture: recorded launches {recorded}")
+    for replay in (1, 2):
+        src_new, bg_new, upd_new = fill(nsrc), fill(sym7.N + 2), fill(n_upd)
+        src.copy_(src_new), bg.copy_(bg_new), upd.copy_(upd_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = (ck.segment_sum(src_new, *asm), ck.row_gather(bg_new, gids),
+                ck.segment_add_(bg_new.clone(), upd_new, *bdw))
+        if not all(torch.equal(a, b) for a, b in zip((fronts, rhs, bg), want)):
+            raise RuntimeError(f"capture: replay {replay} differs from the eager launches")
+    print(f"capture: fused assembly of group {big} ({asm[0].numel()} sources -> "
+          f"{asm[1].numel() - 1} front entries), sweep gather and in-place update of group "
+          f"{fwd} ({bdw[2].numel()} dofs) recorded into one CUDA graph; 2 replays on refilled "
+          "inputs equal the eager launches bit for bit", flush=True)
 
 
 def solve(geometry, label):
@@ -364,6 +542,7 @@ def main() -> int:
     print(f"L=7 fine-level ND symbolic: {sym7.ngroups} groups, N={sym7.N}, "
           f"{sym_s:.2f}s", flush=True)
     kernels = check_kernels(g6, g7, sym7)
+    check_capture(sym7)
 
     # phase 3: L=5, default configuration (every level dense)
     sol, c, wall, launches = solve(mt.fem2d(L=5), "L=5")

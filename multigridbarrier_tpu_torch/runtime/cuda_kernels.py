@@ -7,13 +7,23 @@ the gather kernels probed in tools/probe_pallas_gather.py):
   B. element_matvec   per-element He[e] @ v[idx[e]]        csrc/element_matvec.cu
   C. table_sum        gather-table node sum (no atomics)   csrc/table_sum.cu
      segment_sum      its CSR-offset form, for skewed fan-in
+     segment_add_     the same sum added in place into listed rows
   D. row_gather       out = v[idx] along rows              csrc/row_gather.cu
      take_along_rows  out[r, l] = v[idx[r, l], l]
 
 hvp = B then C; LevelBasis.scatter_add = C.  The deterministic sums of the
-Newton matrix (element Hessians to deduplicated values, nested-dissection
-front assembly, the forward sweep's updates) are C's segment_sum, and every
-gather of the nested-dissection fine level is D's row_gather.
+Newton matrix are C's: element Hessians to deduplicated values and the
+nested-dissection front assembly (one segment_sum per front group, reading
+its sources through the group's list) and the forward sweep's boundary
+updates (segment_add_).  The other gathers of the nested-dissection fine
+level are D's row_gather.
+
+The index tensors of those sums and gathers never change after a level is
+set up, so the solver binds each to a plan (GatherPlan, SegmentPlan): the
+plan validates and keeps the index tensors once, and a call checks only
+the float operand, allocates the output and launches.  The general
+wrappers check everything on every call; a plan and its wrapper launch the
+same kernel and count in the same LAUNCHES entry.
 
 The CUDA sources are compiled with nvcc for sm_90a, one nvcc per source,
 all started together, and linked into one shared library with a plain C
@@ -54,6 +64,7 @@ LAUNCHES = {
     "element_matvec": 0,
     "table_sum": 0,
     "segment_sum": 0,
+    "segment_add_": 0,
     "row_gather": 0,
     "take_along_rows": 0,
 }
@@ -152,7 +163,7 @@ def load():
                 fn.argtypes = [vp, vp, vp, i64, i64, i32, i32, vp]
                 fn.restype = i32
                 fn = getattr(lib, f"mgb_segment_sum_{t}")
-                fn.argtypes = [vp, vp, vp, vp, i64, i64, i32, vp]
+                fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, vp]
                 fn.restype = i32
                 for name in ("row_gather", "take_along_rows"):
                     fn = getattr(lib, f"mgb_{name}_{t}")
@@ -185,11 +196,26 @@ def _check(name, tensors, float_names, index_names=()):
     return dev
 
 
-def _launch(name, dtype, device, *args):
-    fn = getattr(load(), f"mgb_{name}_{_SUFFIX[dtype]}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
+def _kernel(name, dtype):
+    """The library's C entry point of a kernel for a dtype."""
+    return getattr(load(), f"mgb_{name}_{_SUFFIX[dtype]}")
+
+
+# the current stream's handle as an int, without building a Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream
+)
+
+
+def _launch(name, fn, index, *args):
+    """Launch fn(*args, stream) on device `index`'s current stream (also a
+    stream that is being captured into a CUDA graph) and count it under
+    LAUNCHES[name].  Nothing here waits for the device."""
+    if torch.cuda.current_device() == index:
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1
@@ -224,7 +250,8 @@ def he_assemble(P: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
             f"of shared memory per element (got C={C}, nq*k={nq * k})"
         )
     out = torch.empty((nelem, C, C), dtype=P.dtype, device=dev)
-    _launch("he_assemble", P.dtype, dev, P.data_ptr(), W.data_ptr(),
+    _launch("he_assemble", _kernel("he_assemble", P.dtype), dev.index,
+            P.data_ptr(), W.data_ptr(),
             out.data_ptr(), nelem, nq, k, C)
     return out
 
@@ -261,7 +288,8 @@ def element_matvec(He: torch.Tensor, idx: torch.Tensor, vp: torch.Tensor):
     if (C * C + C) * He.element_size() > 48 * 1024:
         raise ValueError(f"element_matvec: C={C} exceeds the kernel's shared memory")
     out = torch.empty((nelem * nl, nf), dtype=He.dtype, device=dev)
-    _launch("element_matvec", He.dtype, dev, He.data_ptr(), idx.data_ptr(),
+    _launch("element_matvec", _kernel("element_matvec", He.dtype), dev.index,
+            He.data_ptr(), idx.data_ptr(),
             vp.data_ptr(), out.data_ptr(), nelem, nl, nf, vp.shape[1])
     return out
 
@@ -295,14 +323,16 @@ def table_sum(src: torch.Tensor, tbl: torch.Tensor, m: int) -> torch.Tensor:
         return table_sum_plain(src, tbl, m)
     f = src.shape[1]
     out = torch.empty((m + 1, f), dtype=src.dtype, device=dev)
-    _launch("table_sum", src.dtype, dev, src.data_ptr(), tbl.data_ptr(),
+    _launch("table_sum", _kernel("table_sum", src.dtype), dev.index,
+            src.data_ptr(), tbl.data_ptr(),
             out.data_ptr(), src.shape[0], m, tbl.shape[1], f)
     return out
 
 
 def segment_sum_plain(src: torch.Tensor, lst, off: torch.Tensor) -> torch.Tensor:
     """out[a] = sum_{off[a] <= j < off[a+1]} src[lst[j]] (src[j] when lst is
-    None), summed in list order from zero, as the kernel sums."""
+    None), summed in list order from zero, as the kernel sums.  List
+    entries must lie in [0, rows)."""
     off = off.long()
     start, cnt = off[:-1], off[1:] - off[:-1]
     out = src.new_zeros((cnt.shape[0],) + tuple(src.shape[1:]))
@@ -310,6 +340,30 @@ def segment_sum_plain(src: torch.Tensor, lst, off: torch.Tensor) -> torch.Tensor
         sel = torch.nonzero(cnt > w)[:, 0]
         j = start[sel] + w
         out[sel] += src[lst[j].long() if lst is not None else j]
+    return out
+
+
+def segment_add_plain(dst: torch.Tensor, src: torch.Tensor, lst, off: torch.Tensor,
+                      ids: torch.Tensor) -> torch.Tensor:
+    """dst[ids[a]] += sum_{off[a] <= j < off[a+1]} src[lst[j]] in place, for
+    unique ids; each sum in list order from zero, then one add into dst.
+    Returns dst."""
+    ids = ids.long()
+    dst[ids] = dst[ids] + segment_sum_plain(src, lst, off)
+    return dst
+
+
+def _segment_shapes(name, src, lst, off):
+    if src.ndim not in (1, 2) or off.ndim != 1 or off.numel() == 0 or (
+            lst is not None and lst.ndim != 1):
+        raise ValueError(f"{name}: src 1-D or 2-D, lst and off 1-D, off not empty")
+
+
+def _segment_launch(name, fn, src, lst_ptr, off_ptr, ids_ptr, out, nseg):
+    if nseg:
+        _launch(name, fn, src.device.index, src.data_ptr(), lst_ptr, off_ptr,
+                ids_ptr, out.data_ptr(), src.shape[0], nseg,
+                1 if src.ndim == 1 else src.shape[1])
     return out
 
 
@@ -321,18 +375,130 @@ def segment_sum(src: torch.Tensor, lst, off: torch.Tensor) -> torch.Tensor:
     if lst is not None:
         tensors["lst"] = lst
     dev = _check("segment_sum", tensors, ("src",), ("lst", "off"))
-    if src.ndim not in (1, 2) or off.ndim != 1 or (lst is not None and lst.ndim != 1):
-        raise ValueError("segment_sum: src 1-D or 2-D, lst and off 1-D")
+    _segment_shapes("segment_sum", src, lst, off)
     if dev.type == "cpu":
         return segment_sum_plain(src, lst, off)
     nseg = off.shape[0] - 1
-    f = 1 if src.ndim == 1 else src.shape[1]
     out = torch.empty((nseg,) + tuple(src.shape[1:]), dtype=src.dtype, device=dev)
-    if out.numel():
-        _launch("segment_sum", src.dtype, dev, src.data_ptr(),
-                None if lst is None else lst.data_ptr(), off.data_ptr(),
-                out.data_ptr(), src.shape[0], nseg, f)
-    return out
+    if not out.numel():
+        return out
+    return _segment_launch(
+        "segment_sum", _kernel("segment_sum", src.dtype), src,
+        None if lst is None else lst.data_ptr(), off.data_ptr(), None, out, nseg)
+
+
+def segment_add_(dst: torch.Tensor, src: torch.Tensor, lst, off: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
+    """dst[ids[a]] += sum_{off[a] <= j < off[a+1]} src[lst[j]] in place and
+    without atomics: ids (nseg,) int32 must be unique (the solver's are
+    sorted).  dst (n,) or (n, f), src (rows,) or (rows, f) with the same f.
+    Returns dst."""
+    tensors = {"dst": dst, "src": src, "off": off, "ids": ids}
+    if lst is not None:
+        tensors["lst"] = lst
+    dev = _check("segment_add_", tensors, ("dst", "src"), ("lst", "off", "ids"))
+    _segment_shapes("segment_add_", src, lst, off)
+    if dst.ndim != src.ndim or dst.shape[1:] != src.shape[1:] or ids.ndim != 1 or (
+            ids.shape[0] != off.shape[0] - 1):
+        raise ValueError("segment_add_: dst and src of one row shape, ids (nseg,)")
+    if dev.type == "cpu":
+        return segment_add_plain(dst, src, lst, off, ids)
+    if not src.numel():
+        return dst
+    return _segment_launch(
+        "segment_add_", _kernel("segment_sum", src.dtype), src,
+        None if lst is None else lst.data_ptr(), off.data_ptr(), ids.data_ptr(),
+        dst, ids.shape[0])
+
+
+def _plan_index(name, key, t, device=None):
+    """Validate one static index tensor of a plan: int32, contiguous, on
+    the CPU or a CUDA device (the plan's, if given)."""
+    if t.device.type not in ("cpu", "cuda") or (device is not None and t.device != device):
+        raise ValueError(f"{name}: {key} on {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected torch.int32")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {key} is not contiguous")
+    return t
+
+
+def _plan_operand(name, key, t, device, rows):
+    """The per-call check of a plan's float operand: device, dtype,
+    contiguity, rank and leading size."""
+    if t.device != device:
+        raise ValueError(f"{name}: {key} on {t.device}, the plan is on {device}")
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
+    if not t.is_contiguous() or t.ndim not in (1, 2):
+        raise ValueError(f"{name}: {key} must be contiguous, 1-D or 2-D")
+    if t.shape[0] != rows:
+        raise ValueError(f"{name}: {key} has {t.shape[0]} rows, the plan expects {rows}")
+
+
+class SegmentPlan:
+    """segment_sum / segment_add_ bound to static tables.
+
+    lst (or None), off and, for the in-place form, ids are validated once
+    (device, int32, contiguity, sizes, list entries inside [0, rows), ids
+    unique inside [0, ndst)) and kept alive; plan(src) = segment_sum(src,
+    lst, off) and plan.add_(dst, src) = segment_add_(dst, src, lst, off,
+    ids), with only the float operands checked per call.  On a CUDA device
+    the kernel library is built and its entry points resolved here."""
+
+    def __init__(self, lst, off: torch.Tensor, rows: int, ids=None, ndst=None):
+        name = "SegmentPlan"
+        self.device = _plan_index(name, "off", off).device
+        self.lst, self.off, self.ids = lst, off, ids
+        for key, t in (("lst", lst), ("ids", ids)):
+            if t is not None:
+                _plan_index(name, key, t, self.device)
+        if off.ndim != 1 or off.numel() == 0 or (lst is not None and lst.ndim != 1):
+            raise ValueError(f"{name}: lst and off 1-D, off not empty")
+        self.rows, self.nseg = int(rows), off.shape[0] - 1
+        n_list = self.rows if lst is None else lst.numel()
+        steps = off[1:] - off[:-1]
+        if int(off[0]) != 0 or int(off[-1]) > n_list or bool((steps < 0).any()):
+            raise ValueError(f"{name}: off must ascend from 0 to at most {n_list}")
+        if lst is not None and lst.numel() and not (
+                0 <= int(lst.min()) and int(lst.max()) < self.rows):
+            raise ValueError(f"{name}: lst entries outside [0, {self.rows})")
+        self.ndst = None if ndst is None else int(ndst)
+        if ids is not None:
+            if ids.ndim != 1 or ids.shape[0] != self.nseg or self.ndst is None:
+                raise ValueError(f"{name}: ids (nseg,) and ndst go together")
+            if self.nseg and not (0 <= int(ids.min()) and int(ids.max()) < self.ndst
+                                  and torch.unique(ids).numel() == self.nseg):
+                raise ValueError(f"{name}: ids must be unique inside [0, {self.ndst})")
+        self._ptr = tuple(None if t is None else t.data_ptr() for t in (lst, off, ids))
+        self._fn = {}
+        if self.device.type == "cuda":
+            self._fn = {dt: _kernel("segment_sum", dt) for dt in _SUFFIX}
+
+    def __call__(self, src: torch.Tensor) -> torch.Tensor:
+        _plan_operand("SegmentPlan", "src", src, self.device, self.rows)
+        if self.device.type == "cpu":
+            return segment_sum_plain(src, self.lst, self.off)
+        out = torch.empty((self.nseg,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=self.device)
+        if not out.numel():
+            return out
+        return _segment_launch("segment_sum", self._fn[src.dtype], src,
+                               self._ptr[0], self._ptr[1], None, out, self.nseg)
+
+    def add_(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        if self.ids is None:
+            raise ValueError("SegmentPlan.add_: the plan has no ids")
+        _plan_operand("SegmentPlan.add_", "src", src, self.device, self.rows)
+        _plan_operand("SegmentPlan.add_", "dst", dst, self.device, self.ndst)
+        if dst.dtype != src.dtype or dst.shape[1:] != src.shape[1:]:
+            raise TypeError("SegmentPlan.add_: dst and src differ in dtype or row shape")
+        if self.device.type == "cpu":
+            return segment_add_plain(dst, src, self.lst, self.off, self.ids)
+        if not src.numel():
+            return dst
+        return _segment_launch("segment_add_", self._fn[src.dtype], src,
+                               *self._ptr, dst, self.nseg)
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +512,14 @@ def row_gather_plain(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return v[idx.long().clamp(0, v.shape[0] - 1)]
 
 
+def _gather_launch(fn, v, idx_ptr, idx_shape, rows):
+    out = torch.empty(idx_shape + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+    if out.numel():
+        _launch("row_gather", fn, v.device.index, v.data_ptr(), idx_ptr,
+                out.data_ptr(), rows, v.shape[0], 1 if v.ndim == 1 else v.shape[1])
+    return out
+
+
 def row_gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """v (n,) or (n, lanes), idx int32 of any shape -> (*idx.shape) or
     (*idx.shape, lanes); indices are clamped to [0, n-1]."""
@@ -356,12 +530,31 @@ def row_gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("row_gather: gather from an empty v")
     if dev.type == "cpu":
         return row_gather_plain(v, idx)
-    out = torch.empty(tuple(idx.shape) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
-    if out.numel():
-        lanes = 1 if v.ndim == 1 else v.shape[1]
-        _launch("row_gather", v.dtype, dev, v.data_ptr(), idx.data_ptr(),
-                out.data_ptr(), idx.numel(), v.shape[0], lanes)
-    return out
+    return _gather_launch(_kernel("row_gather", v.dtype), v, idx.data_ptr(),
+                          tuple(idx.shape), idx.numel())
+
+
+class GatherPlan:
+    """row_gather bound to a static index tensor: idx is validated once
+    (device, int32, contiguity) and kept alive; plan(v) = row_gather(v,
+    idx) for v of n rows, with only v checked per call.  On a CUDA device
+    the kernel library is built and its entry points resolved here."""
+
+    def __init__(self, idx: torch.Tensor, n: int):
+        self.idx = _plan_index("GatherPlan", "idx", idx)
+        self.device, self.n = idx.device, int(n)
+        if self.n <= 0 and idx.numel():
+            raise ValueError("GatherPlan: gather from an empty v")
+        self._shape, self._rows, self._ptr = tuple(idx.shape), idx.numel(), idx.data_ptr()
+        self._fn = {}
+        if self.device.type == "cuda":
+            self._fn = {dt: _kernel("row_gather", dt) for dt in _SUFFIX}
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        _plan_operand("GatherPlan", "v", v, self.device, self.n)
+        if self.device.type == "cpu":
+            return row_gather_plain(v, self.idx)
+        return _gather_launch(self._fn[v.dtype], v, self._ptr, self._shape, self._rows)
 
 
 def take_along_rows_plain(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -384,6 +577,7 @@ def take_along_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return take_along_rows_plain(v, idx)
     out = torch.empty(tuple(idx.shape), dtype=v.dtype, device=dev)
     if out.numel():
-        _launch("take_along_rows", v.dtype, dev, v.data_ptr(), idx.data_ptr(),
+        _launch("take_along_rows", _kernel("take_along_rows", v.dtype), dev.index,
+                v.data_ptr(), idx.data_ptr(),
                 out.data_ptr(), idx.shape[0], v.shape[0], v.shape[1])
     return out

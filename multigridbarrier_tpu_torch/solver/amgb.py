@@ -49,7 +49,7 @@ import torch
 from torch.func import grad, hessian, vmap
 
 from ..fem.geometry import Geometry
-from ..runtime.cuda_kernels import he_assemble, row_gather, segment_sum
+from ..runtime.cuda_kernels import GatherPlan, SegmentPlan, he_assemble
 from .convex import Convex, convex_Euclidian_power
 from .linsolve import LevelSystem, dense_solve, he_to_vals, vals_table
 from .ndsolve import NDFactorizer, NDSymbolic, narrow_idx, node_coords
@@ -183,9 +183,11 @@ class _NDLevel:
         dev = basis.idx.device
         self.fz = NDFactorizer(sym, dev, x.dtype)
         self.m, self.nf = m, nf
-        self.pair_j = narrow_idx(sym.pair_j, dev)
-        self.pair_vidx = narrow_idx(sym.pair_vidx, dev)
-        self.pair_off = narrow_idx(sym.pair_off, dev)
+        nvals = sym.nvals
+        # static index maps, each bound once to a launch plan of kernel D or C
+        self.pair_j = GatherPlan(narrow_idx(sym.pair_j, dev), m)
+        self.pair_vidx = GatherPlan(narrow_idx(sym.pair_vidx, dev), nvals)
+        self.pair_sum = SegmentPlan(None, narrow_idx(sym.pair_off, dev), len(sym.pair_j))
         # node-major per-dof diagonal ids: vals[(f*nf+f)*nuniq + diag_pid]
         self.diag_ids = narrow_idx(
             (
@@ -194,14 +196,15 @@ class _NDLevel:
             ).reshape(-1),
             dev,
         )
+        self.diag = GatherPlan(self.diag_ids, nvals)
 
     def matvec(self, vpair: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
         """Exact A @ x from the deduplicated pair blocks vpair (npair, nf*nf);
         x and the result are node-major (m*nf,)."""
         nf = self.nf
-        xj = row_gather(xv.reshape(self.m, nf), self.pair_j)
+        xj = self.pair_j(xv.reshape(self.m, nf))
         contrib = torch.einsum("pfg,pg->pf", vpair.reshape(-1, nf, nf), xj)
-        return segment_sum(contrib.contiguous(), None, self.pair_off).reshape(-1)
+        return self.pair_sum(contrib.contiguous()).reshape(-1)
 
     def direction(self, vals: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
         """vals (HostPattern layout), gv (nf, m+1) -> dvp (nf, m+1), the
@@ -209,7 +212,7 @@ class _NDLevel:
         m, nf = self.m, self.nf
         b = -gv[:, :m].T.reshape(-1)
         fac = self.fz.factor(vals)
-        vpair = row_gather(vals, self.pair_vidx)
+        vpair = self.pair_vidx(vals)
 
         def apply_fac(r):
             return self.fz.solve(fac, r)
@@ -244,7 +247,7 @@ class _NDLevel:
         q_ir, q_cg = q_of(xv), q_of(xv_cg)
         take_cg = torch.isfinite(xv_cg).all() & torch.isfinite(q_cg) & (q_cg <= q_ir)
         xv = torch.where(take_cg, xv_cg, xv)
-        dg = row_gather(vals, self.diag_ids).abs().clamp_min(1e-300)
+        dg = self.diag(vals).abs().clamp_min(1e-300)
         xv = torch.where(torch.isfinite(xv).all(), xv, b / dg)
         return torch.cat([xv.reshape(m, nf).T, xv.new_zeros((nf, 1))], dim=1)
 

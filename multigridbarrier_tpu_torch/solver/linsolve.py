@@ -23,20 +23,20 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..runtime.cuda_kernels import element_matvec, segment_sum, table_sum
+from ..runtime.cuda_kernels import SegmentPlan, element_matvec, table_sum
 from .hostsolve import HostPattern
 
 
 class ValsTable(NamedTuple):
     """A HostPattern's segment tables on the device.
 
-    src: (nelem*C*C,) int32 flat He positions sorted stably by vals slot
-    off: (nseg+1,) int32 offsets into src, one per vals slot
+    plan: the He -> vals segment sum bound to its tables (kernel C's
+        SegmentPlan): plan.lst (nelem*C*C,) int32 flat He positions sorted
+        stably by vals slot, plan.off (nseg+1,) int32 offsets, one per slot
     dense_pos: (nseg,) int64 flat position of each slot in the N x N matrix
     """
 
-    src: torch.Tensor
-    off: torch.Tensor
+    plan: SegmentPlan
     dense_pos: torch.Tensor
 
 
@@ -46,16 +46,21 @@ def vals_table(idx: torch.Tensor, m: int, nf: int) -> ValsTable:
     pat = HostPattern(idx.cpu().numpy(), m, nf)
     dev = idx.device
     return ValsTable(
-        torch.as_tensor(pat.seg_src, device=dev),
-        torch.as_tensor(pat.seg_off, device=dev),
+        SegmentPlan(
+            torch.as_tensor(pat.seg_src, device=dev),
+            torch.as_tensor(pat.seg_off, device=dev),
+            pat.full_ids.size,
+        ),
         torch.as_tensor(pat.dense_pos, device=dev),
     )
 
 
 def he_to_vals(He: torch.Tensor, table: ValsTable) -> torch.Tensor:
     """Element Hessians -> deduplicated values (HostPattern layout
-    ((f1*nf+f2)*nuniq + pid)), each slot summed in element order."""
-    return segment_sum(He.reshape(-1), table.src, table.off)
+    ((f1*nf+f2)*nuniq + pid)), each slot summed in element order
+    (also the long runs: the pad-node slots' thousands of zeros, and on
+    coarse levels real slots fed by hundreds of elements)."""
+    return table.plan(He.reshape(-1))
 
 
 class LevelSystem(NamedTuple):

@@ -17,11 +17,11 @@ gathers and segment sums.
   JAX module array for array.  The port adds the CSR tables its
   deterministic sums need (_build_sum_tables).  The relay extend-add maps
   of the TPU configuration are not ported.
-* NDFactorizer (torch): per group, deepest first, one row gather (kernel D)
-  brings every contribution of the group's fronts — matrix values, the
-  children's Schur entries, pad unit diagonals — into destination order,
-  and one segment sum (kernel C's CSR entry) adds them up, without
-  atomics, so two runs give the same fronts bit for bit.  Then
+* NDFactorizer (torch): per group, deepest first, one segment sum (kernel
+  C's CSR entry) assembles the group's fronts: each front entry adds up
+  its contributions — matrix values, the children's Schur entries, pad
+  unit diagonals — read through the group's source list, in a fixed order
+  and without atomics, so two runs give the same fronts bit for bit.  Then
   torch.linalg.cholesky_ex, torch.linalg.solve_triangular for Lsb and a
   matrix product for the Schur complement.  Triangular factors are applied
   by substitution in both sweeps (no explicit inverse).
@@ -47,7 +47,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..runtime.cuda_kernels import row_gather, segment_sum
+from ..runtime.cuda_kernels import GatherPlan, SegmentPlan
 
 
 def narrow_idx(a, device) -> torch.Tensor:
@@ -449,22 +449,25 @@ class NDSymbolic:
 
     def _build_sum_tables(self):
         """CSR tables of the numeric phase's deterministic sums (kernel C's
-        segment_sum) and gathers (kernel D's row_gather).
+        segment_sum and segment_add_) and gathers (kernel D's row_gather).
 
         Front assembly reads one source buffer [vals | sb_flat | 1.0] of
         nvals + sb_off[-1] + 1 entries.  Per group, asm_src lists the
         source of every contribution — matrix values (asm_pid), children's
         Schur entries (ea_tsrc shifted by nvals) and pad unit diagonals
-        (the 1.0 slot) — sorted stably by destination, so one row gather
-        brings them into destination order; asm_off holds one offset per
-        front entry, and each destination sums its run in the order a
-        sequential scatter-add of [assembly, extend-add, pad] would.
-        The forward sweep's boundary update: bdw_src lists the flat update
-        positions sorted by destination dof, bdw_off one offset per entry
-        of the (N+2,) sweep vector.  Updates bound for the write-only pad
-        sink N+1 are left out: that slot is never read, and summing them
-        would put every padded entry of a group (9,492 in fem2d L=7's
-        largest) into one thread's serial loop.  The pair matvec: pair_i ascends (uniq is sorted by
+        (the 1.0 slot) — sorted stably by destination; asm_off holds one
+        offset per front entry, and each destination sums its run of the
+        list in the order a sequential scatter-add of [assembly,
+        extend-add, pad] would.
+        The forward sweep's boundary update is compact: bdw_ids lists the
+        dofs of the (N+2,) sweep vector that the group's boundary touches
+        (sorted, unique), bdw_src the flat update positions sorted stably
+        by destination dof, and bdw_off one offset per listed dof, so the
+        update adds into those dofs in place and reads and writes nothing
+        else.  Updates bound for the write-only pad sink N+1 are left
+        out: that slot is never read, and summing them would put every
+        padded entry of a group (9,492 in fem2d L=7's largest) into one
+        run.  The pair matvec: pair_i ascends (uniq is sorted by
         i*(m+1)+j), so pair_off is one offset per node and needs no list;
         pair_vidx[p, f*nf+g] = (f*nf+g)*nuniq + pair_pid[p] gathers the
         pair blocks from vals."""
@@ -475,6 +478,7 @@ class NDSymbolic:
         self.asm_off: List[np.ndarray] = []
         self.bdw_src: List[np.ndarray] = []
         self.bdw_off: List[np.ndarray] = []
+        self.bdw_ids: List[np.ndarray] = []
         for d in range(self.ngroups):
             F = (self.s_pad[d] + self.b_pad[d]) * nf
             src = np.concatenate([
@@ -490,7 +494,9 @@ class NDSymbolic:
             dst = self.bd_gids_w[d].reshape(-1)
             keep = np.nonzero(dst < self.N)[0]
             self.bdw_src.append(keep[np.argsort(dst[keep], kind="stable")])
-            self.bdw_off.append(_offsets(dst[keep], self.N + 2))
+            ids, slot = np.unique(dst[keep], return_inverse=True)
+            self.bdw_ids.append(ids)
+            self.bdw_off.append(_offsets(slot, len(ids)))
         self.pair_off = _offsets(self.pair_i, self.m)
         self.pair_vidx = (
             np.arange(nf * nf, dtype=np.int64)[None, :] * self.nuniq
@@ -505,7 +511,8 @@ class NDSymbolic:
 
 class NDFactorizer:
     """Factor/solve built from an NDSymbolic schedule, with its index maps
-    on `device` (int32 where they fit).
+    on `device` as int32, each bound once to a launch plan of kernel C or D
+    (the maps never change, so a call checks only its float operand).
 
     factor(vals) returns the deepest-first list [(Ls, Lsb)] of per-group
     factors; solve(fac, b) solves A x = b.  Neither synchronizes with the
@@ -515,21 +522,34 @@ class NDFactorizer:
         self.sym = sym
         self.dtype = dtype
         dev = torch.device(device)
-        idx = lambda a: narrow_idx(a, dev)  # noqa: E731
-        self.asm_src = [idx(a) for a in sym.asm_src]
-        self.asm_off = [idx(a) for a in sym.asm_off]
-        self.sep_gids = [idx(a) for a in sym.sep_gids]
-        self.bd_gids = [idx(a) for a in sym.bd_gids]
-        # index_put_ takes int64; duplicates only at the write-only sink N+1
-        self.sep_gids_w = [torch.as_tensor(a.reshape(-1), device=dev) for a in sym.sep_gids_w]
-        self.bdw_src = [idx(a) for a in sym.bdw_src]
-        self.bdw_off = [idx(a) for a in sym.bdw_off]
-        nf = sym.nf
+
+        def idx(a):
+            t = narrow_idx(a, dev)
+            if t.dtype != torch.int32:
+                raise ValueError("NDFactorizer: an index map does not fit int32")
+            return t
+
+        nf, N = sym.nf, sym.N
         self._shape = [
             (len(sym.by_depth[d]), (sym.s_pad[d] + sym.b_pad[d]) * nf, sym.s_pad[d] * nf)
             for d in range(sym.ngroups)
         ]
         self._sb = [int(o) + sym.nvals for o in sym.sb_off]
+        nsrc = self._sb[-1] + 1
+        # front assembly: one segment sum per group over [vals | sb_flat | 1.0]
+        self.asm = [
+            SegmentPlan(idx(s), idx(o), nsrc) for s, o in zip(sym.asm_src, sym.asm_off)
+        ]
+        # the sweeps' right-hand-side gathers from the (N+2,) vectors
+        self.sep_gather = [GatherPlan(idx(a), N + 2) for a in sym.sep_gids]
+        self.bd_gather = [GatherPlan(idx(a), N + 2) for a in sym.bd_gids]
+        # index_put_ takes int64; duplicates only at the write-only sink N+1
+        self.sep_gids_w = [torch.as_tensor(a.reshape(-1), device=dev) for a in sym.sep_gids_w]
+        # the forward sweep's in-place boundary update of each group
+        self.bdw = [
+            SegmentPlan(idx(s), idx(o), n_d * (F - sep), ids=idx(i), ndst=N + 2)
+            for (n_d, F, sep), s, o, i in zip(self._shape, sym.bdw_src, sym.bdw_off, sym.bdw_ids)
+        ]
 
     def factor(self, vals: torch.Tensor):
         """vals: deduplicated value array (HostPattern layout).  Returns
@@ -546,9 +566,7 @@ class NDFactorizer:
         out = []
         for d in range(sym.ngroups - 1, -1, -1):
             n_d, F, s = self._shape[d]
-            fronts = segment_sum(
-                row_gather(src, self.asm_src[d]), None, self.asm_off[d]
-            ).reshape(n_d, F, F)
+            fronts = self.asm[d](src).reshape(n_d, F, F)
             A = fronts[:, :s, :s]
             # torch.linalg.cholesky raises on a front that is not positive
             # definite where jnp.linalg.cholesky returns NaN; the caller's
@@ -573,26 +591,26 @@ class NDFactorizer:
         ng, N = sym.ngroups, sym.N
         dtype = fac[0][0].dtype  # sweeps run at the factor's precision
         # slot N is the read-only pad sink (always zero); slot N+1 is the
-        # write-only pad sink (garbage, never read) — see _build_solve_maps
+        # write-only pad sink (garbage, never read) — see _build_solve_maps.
+        # bg is a fresh tensor (torch.cat copies), so the forward sweep
+        # updates it in place where the JAX sweep rebuilds it per group.
         bg = torch.cat([b.to(dtype), b.new_zeros(2, dtype=dtype)])
         ys = []
         for pos, d in enumerate(range(ng - 1, -1, -1)):
             Ls, Lsb = fac[pos]
-            bS = row_gather(bg, self.sep_gids[d])
+            bS = self.sep_gather[d](bg)
             yS = torch.linalg.solve_triangular(Ls, bS[:, :, None], upper=False)[:, :, 0]
             ys.append(yS)
             if Lsb.shape[2]:
                 upd = -torch.einsum("kab,ka->kb", Lsb, yS)
-                bg = bg + segment_sum(
-                    upd.reshape(-1), self.bdw_src[d], self.bdw_off[d]
-                )
+                self.bdw[d].add_(bg, upd.reshape(-1))
         xg = bg.new_zeros(N + 2)
         for pos in range(len(fac) - 1, -1, -1):
             d = ng - 1 - pos
             Ls, Lsb = fac[pos]
             yS = ys[pos]
             if Lsb.shape[2]:
-                xB = row_gather(xg, self.bd_gids[d])
+                xB = self.bd_gather[d](xg)
                 yS = yS - torch.einsum("kab,kb->ka", Lsb, xB)
             xS = torch.linalg.solve_triangular(Ls.mT, yS[:, :, None], upper=True)[:, :, 0]
             xg[self.sep_gids_w[d]] = xS.reshape(-1)

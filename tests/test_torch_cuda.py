@@ -8,8 +8,9 @@ imports no JAX, so it also runs on a machine without it:
 Tolerances: max|kernel - plain| / max|plain| <= 1e-12 in float64 and 1e-5
 in float32 (TF32 off) for A and B: the two sides sum the same short
 products in other orders, a few ulps apart.  Kernel D is a copy and C's
-segment_sum adds in the same order as its plain version, so both are held
-to exact equality.  The dense L=3 solve agrees with the CPU run to 1e-9
+segment_sum and segment_add_ add in list order like their plain versions
+(also the runs of more than 64 entries that a whole block gathers), so
+they are held to exact equality, NaN for NaN.  The dense L=3 solve agrees with the CPU run to 1e-9
 rel, the tolerance the CPU tests hold the JAX package to.  The forced-ND
 L=4 solve is held as the CPU tests hold it against JAX: its and c_dot_Dz
 of every t-stage through t=1e4 (c to 1e-9 rel), and the final c_dot_Dz
@@ -121,6 +122,119 @@ def test_segment_sum_kernel_matches_plain(cuda, f):
         assert torch.equal(out, ck.segment_sum_plain(src, lst_, off))
 
 
+def _unaligned(t, shape):
+    """A contiguous view of `shape` whose base lies one element past t's
+    (so not on a 16-byte boundary); t must hold one element more."""
+    n = int(np.prod(shape))
+    return t.reshape(-1)[1:1 + n].reshape(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 4, 6, 128, 130])
+def test_row_gather_paths_match_plain(cuda, lanes, dtype):
+    """row_gather's three paths (four rows per thread for 1-2 lanes,
+    16-byte units for aligned rows, the element loop otherwise) with a row
+    count that is no multiple of four, stray indices, an index tensor and a
+    table off the 16-byte boundary, and the plan beside the wrapper."""
+    rng = np.random.default_rng(100 + lanes)
+    n, rows = 4099, 30001
+    big = torch.tensor(rng.standard_normal(n * lanes + 1), dtype=dtype, device=cuda)
+    idx_big = torch.tensor(rng.integers(-3, n + 3, rows + 1).astype(np.int32), device=cuda)
+    shape = (n, lanes) if lanes > 1 else (n,)
+    for v in (big[:-1].reshape(shape), _unaligned(big, shape)):
+        for idx in (idx_big[:-1], idx_big[1:], idx_big[:8].reshape(2, 4), idx_big[:3]):
+            n0 = ck.LAUNCHES["row_gather"]
+            out = ck.row_gather(v, idx)
+            out_p = ck.GatherPlan(idx, n)(v)
+            torch.cuda.synchronize()
+            assert ck.LAUNCHES["row_gather"] == n0 + 2
+            ref = ck.row_gather_plain(v, idx)
+            assert torch.equal(out, ref) and torch.equal(out_p, ref)
+
+
+def _long_segments(rng, f, dtype, device):
+    counts = np.concatenate([
+        rng.integers(0, 6, 3000), [64, 65, 256, 257, 2574, 700, 300, 0, 34], rng.integers(0, 6, 500),
+    ])
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    rows = int(off[-1])
+    lst = rng.permutation(rows).astype(np.int32)
+    src = rng.standard_normal((rows, f) if f > 1 else rows)
+    src[lst[off[3004]:off[3005]]] = 0.0  # the 2,574-entry run: zeros
+    src[lst[off[3005] + 77]] = np.nan  # inside the 700-entry run
+    src[lst[off[3006]:off[3007]]] = 0.0
+    src[lst[off[3007] - 1]] = np.nan  # a zero run ending in NaN
+    return (torch.tensor(src, dtype=dtype, device=device), torch.tensor(lst, device=device),
+            torch.tensor(off, device=device), len(counts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("f", [1, 2])
+def test_segment_kernels_long_runs_match_plain(cuda, f, dtype):
+    """segment_sum and segment_add_ with runs on both sides of the 64-entry
+    cut: zeros give 0, NaN gives NaN, every slot equals the plain version
+    bit for bit; with and without a list, from an aligned and an unaligned
+    list, and through a plan."""
+    src, lst, off, nseg = _long_segments(np.random.default_rng(f), f, dtype, cuda)
+    ref = ck.segment_sum_plain(src, lst, off)
+    assert bool((ref[3004] == 0).all()) and bool(ref[3005].isnan().all())
+    assert bool(ref[3006].isnan().all())
+    lst_u = _unaligned(torch.cat([lst, lst[:1]]), lst.shape)
+    lst_u.copy_(lst)
+    for lst_ in (lst, lst_u):
+        out = ck.segment_sum(src, lst_, off)
+        out_p = ck.SegmentPlan(lst_, off, src.shape[0])(src)
+        torch.cuda.synchronize()
+        assert torch.equal(out.nan_to_num(nan=7.0), ref.nan_to_num(nan=7.0))
+        assert torch.equal(out_p.nan_to_num(nan=7.0), ref.nan_to_num(nan=7.0))
+    srt = src[lst.long()].contiguous()
+    out = ck.segment_sum(srt, None, off)
+    torch.cuda.synchronize()
+    assert torch.equal(out.nan_to_num(nan=7.0), ref.nan_to_num(nan=7.0))
+    # in place into scattered unique rows; unlisted rows keep their bits
+    rng = np.random.default_rng(5)
+    ids = torch.tensor(np.sort(rng.permutation(3 * nseg)[:nseg]).astype(np.int32), device=cuda)
+    dst = torch.tensor(rng.standard_normal((3 * nseg,) + tuple(src.shape[1:])), dtype=dtype, device=cuda)
+    want = ck.segment_add_plain(dst.clone(), src, lst, off, ids)
+    n0 = ck.LAUNCHES["segment_add_"]
+    got = ck.segment_add_(dst.clone(), src, lst, off, ids)
+    got_p = ck.SegmentPlan(lst, off, src.shape[0], ids=ids, ndst=3 * nseg).add_(dst.clone(), src)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["segment_add_"] == n0 + 2
+    assert torch.equal(got.nan_to_num(nan=7.0), want.nan_to_num(nan=7.0))
+    assert torch.equal(got_p.nan_to_num(nan=7.0), want.nan_to_num(nan=7.0))
+
+
+@pytest.mark.cuda
+def test_plans_replay_from_a_cuda_graph(cuda):
+    """A gather, a fused segment sum and an in-place segment add launch on
+    the capturing stream without a host sync: replayed on refilled inputs
+    they give the eager results bit for bit."""
+    rng = np.random.default_rng(9)
+    src, lst, off, nseg = _long_segments(rng, 1, torch.float64, cuda)
+    ids = torch.tensor(np.sort(rng.permutation(2 * nseg)[:nseg]).astype(np.int32), device=cuda)
+    seg = ck.SegmentPlan(lst, off, src.shape[0], ids=ids, ndst=2 * nseg)
+    gat = ck.GatherPlan(lst[:5000].reshape(50, 100), src.shape[0])
+    dst = torch.zeros(2 * nseg, dtype=torch.float64, device=cuda)
+    seg(src), gat(src), seg.add_(dst, src)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_sum, g_gat = seg(src), gat(src)
+        seg.add_(dst, src)
+    for seed in (1, 2):
+        fresh = torch.tensor(np.random.default_rng(seed).standard_normal(src.shape[0]), device=cuda)
+        src.copy_(fresh)
+        dst.fill_(float(seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_sum, ck.segment_sum(fresh, lst, off))
+        assert torch.equal(g_gat, ck.row_gather(fresh, lst[:5000].reshape(50, 100)))
+        assert torch.equal(dst, ck.segment_add_(torch.full_like(dst, float(seed)), fresh, lst, off, ids))
+
+
 @pytest.mark.cuda
 def test_assembly_is_deterministic(cuda):
     """The He -> vals sum and the dense matrix placed from it are the same
@@ -154,7 +268,8 @@ def test_fem2d_L4_forced_nd_on_cuda_matches_cpu(cuda):
     s_cpu = mt.fem2d_solve(L=4, p=1.0, backend=mt.backend_cpu(dense_threshold=256))
     ck.reset_launch_counts()
     s_gpu = mt.fem2d_solve(L=4, p=1.0, backend=mt.backend_cuda(dense_threshold=256))
-    path = ("he_assemble", "element_matvec", "table_sum", "segment_sum", "row_gather")
+    path = ("he_assemble", "element_matvec", "table_sum", "segment_sum", "segment_add_",
+            "row_gather")
     assert all(ck.LAUNCHES[k] > 0 for k in path), ck.LAUNCHES
     assert bool(torch.isfinite(s_gpu.z).all())
     its_cpu, c_cpu = _stages(s_cpu, 1e4)

@@ -153,12 +153,16 @@ def test_nd_symbolic_matches_jax(L):
             np.testing.assert_array_equal(a, b, err_msg=f"{key}[{d}]")
     # the port's CSR tables carry every assembly contribution exactly once,
     # and every forward-sweep update to a real dof once, none to the
-    # write-only pad sink N+1
+    # write-only pad sink N+1; the sweep's destinations are the sorted
+    # unique real dofs of the group's boundary, one offset each
     for d in range(st.ngroups):
         n_src = len(st.asm_pid[d]) + len(st.ea_tsrc[d]) + len(st.pad_ids[d])
         assert len(st.asm_src[d]) == n_src == st.asm_off[d][-1]
-        n_real = int(np.sum(st.bd_gids_w[d] < st.N))
-        assert len(st.bdw_src[d]) == n_real == st.bdw_off[d][-1] == st.bdw_off[d][st.N]
+        w = st.bd_gids_w[d]
+        n_real = int(np.sum(w < st.N))
+        assert len(st.bdw_src[d]) == n_real == st.bdw_off[d][-1]
+        np.testing.assert_array_equal(st.bdw_ids[d], np.unique(w[w < st.N]))
+        assert len(st.bdw_off[d]) == len(st.bdw_ids[d]) + 1
 
 
 def test_nd_factor_solve_matches_jax(l4_system):

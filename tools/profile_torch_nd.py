@@ -10,19 +10,24 @@ start point at t = 0.1, the first barrier parameter of amgb:
   1. one step to build the level's symbolic phase and warm the kernels;
   2. --steps steps timed on the host clock, ending in a synchronize;
   3. the parts of one ND direction on that step's Newton system (factor,
-     solve, pair matvec; host wall with a synchronize) and each front
-     group's assembly, kernel D's gather then kernel C's segment sum
-     (CUDA events), beside its bound;
+     solve, pair matvec; host wall with a synchronize), each front
+     group's fused assembly (one launch of kernel C's segment sum; CUDA
+     events) beside its bound, and the host microseconds per call of the
+     planned launches of kernels C and D (front assembly, sweep gather,
+     in-place sweep update; 5 rounds of 200 calls without a synchronize) beside
+     their general wrappers and their library yardsticks;
   4. --steps more steps under torch.profiler (CPU and CUDA activity).
 
 It prints the card line, the seconds per step of (2), the times of (3),
 then for (4) the device busy time per step and the idle share of the
 profiled wall (1 - summed kernel time / wall; the port runs on one
-stream, so kernels do not overlap), the device time by kernel name (top
-25) and by the PyTorch operator that launched it (top 20), the CUDA
-kernels launched per step, and the port's own kernel launches per step
-(runtime/cuda_kernels.LAUNCHES).  With --solve it first times one whole fem2d_solve(L) on the same geometry
-and prints its c_dot_Dz, its and wall.  Exits 1 without a CUDA device.
+stream, so kernels do not overlap), the CUDA kernels launched per step
+split into the port's own kernels, elementwise kernels, cuBLAS/cuSOLVER
+kernels and the rest, the device time by kernel name (top 25) and by the
+PyTorch operator that launched it (top 20), and the port's own kernel
+launches per step (runtime/cuda_kernels.LAUNCHES).  With --solve it first
+times one whole fem2d_solve(L) on the same geometry and prints its
+c_dot_Dz, its and wall.  Exits 1 without a CUDA device.
 """
 
 import argparse
@@ -86,11 +91,48 @@ def _event_ms(fn, reps=10) -> float:
     return statistics.median(times)
 
 
+def _host_us(fn, calls=200, rounds=5) -> float:
+    """Host microseconds per call: the wall of `calls` calls in a row with
+    no synchronize between them (the enqueue cost); the median of `rounds`
+    such rounds, after a warm-up."""
+    for _ in range(3):
+        fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+LIBRARY_MARKS = ("gemm", "gemv", "trsm", "trsv", "potrf", "getrf", "cublas", "cusolver",
+                 "dot_kernel", "trmm", "syrk", "laswp", "cutlass")
+PORT_MARKS = ("he_assemble_kernel", "element_matvec_kernel", "table_sum_kernel",
+              "segment_sum_kernel", "row_gather_", "take_along_rows_kernel")
+
+
+def _kind(kernel_name: str) -> str:
+    """The launch count's classes: the port's own kernels, cuBLAS/cuSOLVER
+    kernels, PyTorch elementwise kernels, the rest (reductions, copies,
+    index kernels, fills)."""
+    low = kernel_name.lower()
+    if any(m in kernel_name for m in PORT_MARKS):
+        return "port"
+    if any(m in low for m in LIBRARY_MARKS):
+        return "cuBLAS/cuSOLVER"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
 def parts(ctx, level, z, t):
     """The ND direction's parts on this step's Newton system (host wall
-    with a synchronize), and each front group's assembly (kernel D's
-    gather, then kernel C's segment sum) by CUDA events, with its bound
-    (bytes over 3.35 TB/s)."""
+    with a synchronize), each front group's fused assembly (one segment sum
+    of kernel C) by CUDA events with its bound (bytes over 3.35 TB/s), and
+    the host cost per call of the planned C and D launches."""
     nd = ctx.nd[level]
     seen = {}
 
@@ -107,7 +149,7 @@ def parts(ctx, level, z, t):
     fz = nd.fz
     fac = fz.factor(vals)
     b = -gv[:, : nd.m].T.reshape(-1)
-    vpair = ck.row_gather(vals, nd.pair_vidx)
+    vpair = nd.pair_vidx(vals)
     print("ND direction parts (host wall, median of 5): "
           f"step {_wall_ms(lambda: ctx.step(level, z, t)):.3f} ms, "
           f"direction {_wall_ms(lambda: nd.direction(vals, gv)):.3f} ms, "
@@ -119,22 +161,47 @@ def parts(ctx, level, z, t):
     src = vals.new_zeros(fz._sb[-1] + 1)
     src[: fz.sym.nvals] = vals
     rows = []
-    for d in range(fz.sym.ngroups):
-        lst, off = fz.asm_src[d], fz.asm_off[d]
-        gathered = ck.row_gather(src, lst)
-        n_out = off.numel() - 1
-        g_ms = _event_ms(lambda: ck.row_gather(src, lst))
-        s_ms = _event_ms(lambda: ck.segment_sum(gathered, None, off))
-        g_bytes = lst.numel() * (4 + 2 * 8)
-        s_bytes = lst.numel() * 8 + (n_out + 1) * 4 + n_out * 8
-        rows.append((s_ms + g_ms, d, n_out, lst.numel(), g_ms, s_ms,
-                     (g_bytes + s_bytes) / 3.35e12 * 1e3))
-    tot = [sum(r[i] for r in rows) for i in (4, 5, 6)]
-    print(f"front assembly over {len(rows)} groups (CUDA events, median of 10): "
-          f"gather {tot[0]:.3f} ms, segment sum {tot[1]:.3f} ms, bound {tot[2]:.4f} ms")
-    for _, d, n_out, n_src, g_ms, s_ms, bound in sorted(rows, reverse=True)[:8]:
-        print(f"  group {d}: {n_out} front entries, {n_src} sources: gather "
-              f"{g_ms:.4f} ms, segment sum {s_ms:.4f} ms, bound {bound:.4f} ms")
+    for d, plan in enumerate(fz.asm):
+        n_src, n_out = plan.lst.numel(), plan.nseg
+        ms = _event_ms(lambda: plan(src))
+        bound = (n_src * (4 + 8) + (n_out + 1) * 4 + n_out * 8) / 3.35e12 * 1e3
+        rows.append((ms, d, n_out, n_src, bound))
+    print(f"front assembly over {len(rows)} groups (one fused segment sum each; CUDA events, "
+          f"median of 10): {sum(r[0] for r in rows):.3f} ms, bound {sum(r[4] for r in rows):.4f} ms")
+    for ms, d, n_out, n_src, bound in sorted(rows, reverse=True)[:8]:
+        print(f"  group {d}: {n_out} front entries, {n_src} sources: {ms:.4f} ms, "
+              f"bound {bound:.4f} ms")
+
+    # host cost per call of the planned launches, their wrappers and the
+    # library calls that compute the same function
+    d = max(range(len(fz.asm)), key=lambda k: fz.asm[k].lst.numel())
+    asm = fz.asm[d]
+    cnt = (asm.off[1:] - asm.off[:-1]).long()
+    dst = torch.repeat_interleave(torch.arange(asm.nseg, device=src.device), cnt)
+    lst_l = asm.lst.long()
+    f = max(range(len(fz.bdw)), key=lambda k: fz.bdw[k].lst.numel())
+    bdw, gat = fz.bdw[f], fz.sep_gather[f]
+    bg = torch.cat([b, b.new_zeros(2)])
+    upd = torch.randn(bdw.rows, dtype=b.dtype, device=b.device)
+    dof = torch.repeat_interleave(bdw.ids.long(), (bdw.off[1:] - bdw.off[:-1]).long())
+    entries = upd[bdw.lst.long()]
+    gidx_l = gat.idx.long().reshape(-1)
+    table = [
+        (f"C segment_sum, fused assembly of group {d}", lambda: asm(src),
+         lambda: ck.segment_sum(src, asm.lst, asm.off),
+         "index_select + index_add_ (two calls)",
+         lambda: src.new_zeros(asm.nseg).index_add_(0, dst, torch.index_select(src, 0, lst_l))),
+        (f"C segment_add_, forward sweep of group {f}", lambda: bdw.add_(bg, upd),
+         lambda: ck.segment_add_(bg, upd, bdw.lst, bdw.off, bdw.ids),
+         "index_add_", lambda: bg.index_add_(0, dof, entries)),
+        (f"D row_gather, sweep gather of group {f}", lambda: gat(bg),
+         lambda: ck.row_gather(bg, gat.idx), "index_select",
+         lambda: torch.index_select(bg, 0, gidx_l)),
+    ]
+    print("host microseconds per call (median of 5 rounds of 200 calls, no synchronize):")
+    for label, planned, general, lib_name, lib in table:
+        print(f"  {label}: planned {_host_us(planned):.2f}, general wrapper "
+              f"{_host_us(general):.2f}, {lib_name} {_host_us(lib):.2f}", flush=True)
 
 
 def main() -> int:
@@ -214,6 +281,12 @@ def main() -> int:
           f"{busy_us / 1e3 / n:.3f} ms per step, idle share "
           f"{1.0 - busy_us / 1e6 / wall:.4f}, CUDA kernels per step "
           f"{n_kernels / n:.1f}", flush=True)
+    kinds = {}
+    for name, (_, cnt) in by_kernel.items():
+        kinds[_kind(name)] = kinds.get(_kind(name), 0) + cnt
+    print("CUDA kernels per step by kind: "
+          + ", ".join(f"{k}={v / n:.1f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+          flush=True)
     print("port kernel launches per step: "
           + ", ".join(f"{k}={v / n:.1f}" for k, v in launches.items()), flush=True)
 
