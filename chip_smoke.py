@@ -7,7 +7,8 @@ Phases, one printed line each (or a few):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
      the nvcc build of the hand-written kernels (csrc/*.cu, sm_90a, one
      nvcc per source, all started together) into build/kernels/, with its
-     time and ptxas resource lines;
+     time and ptxas resource lines, and kernel A's elements, threads and
+     shared memory per CTA at the L=7 fine shape;
   2. each kernel against its plain PyTorch version on the card, float64
      and float32 (TF32 off), at the main-path shapes of fem2d L=6 and L=7
      (the nested-dissection gathers and sums of the L=7 fine level among
@@ -17,17 +18,25 @@ Phases, one printed line each (or a few):
      rows with an odd lane count and an unaligned base), with median times
      over 30 runs of the kernel, its plain version and, where one exists,
      the one PyTorch call that computes the same function (timed as a
-     yardstick only).  For kernels C and D it also times the planned
-     launch (GatherPlan / SegmentPlan) beside the general wrapper, and the
+     yardstick only).  Beside the general wrapper it also times the planned
+     launch (HePlan / TablePlan / GatherPlan / SegmentPlan), and the
      host microseconds per call of both and of the library call (5 rounds of
      200 calls without a synchronize).
-     A he_assemble, B element_matvec and C table_sum agree to
-     max|k-p|/max|p| <= 1e-12 (f64) and 1e-5 (f32); C's segment_sum and
-     segment_add_ and D's row_gather/take_along_rows exactly, NaN for NaN;
+     A he_assemble, B element_matvec and the fused hvp agree with their
+     plain versions (einsums, which sum in another order) to
+     max|k-p|/max|p| <= 1e-12 (f64) and 1e-5 (f32), and exactly with the
+     other entries of the same kernel: HePlan and the weighted entry (from
+     F2 in both block orders) with he_assemble on the product F2 * w, the
+     fused hvp at every level of L=7 with kernel B followed by kernel C.
+     C's table_sum (both layouts, wrapper and TablePlan), segment_sum and
+     segment_add_ and D's row_gather/take_along_rows agree with their
+     plain versions exactly, NaN for NaN;
      then one front group's fused assembly, one sweep gather and one
-     in-place sweep update are recorded into a CUDA graph and replayed
-     twice on refilled inputs, and must equal the eager results exactly
-     (kernels C and D launch on the capturing stream with no host sync);
+     in-place sweep update, and after them one weighted he_assemble, one
+     element-major table sum and one fused hvp, are recorded into CUDA
+     graphs and replayed twice on refilled inputs, and must equal the
+     eager results exactly (the kernels launch on the capturing stream
+     with no host sync);
   3. fem2d_solve(L=5, p=1.0) on the default backend: every level dense;
      c_dot_Dz within 5e-7 rel of 27.360702531510;
   4. fem2d L=6 with dense_threshold=1<<30, a warm-up run and a timed run:
@@ -41,7 +50,10 @@ Phases, one printed line each (or a few):
      symbolic-build seconds, the solve wall, its, peak device memory and
      the kernel launches.
 In every solve phase the launch counters are reset just before the solve
-and each kernel of that route must have launched.  Then the card line
+and each kernel of that route must have launched (he_assemble, hvp,
+table_sum and segment_sum on the dense route; also segment_add_ and
+row_gather where a level takes nested dissection), and element_matvec,
+which the fused hvp absorbed, must not.  Then the card line
 again, a JSON line with the per-kernel results (launches from phase 6),
 and last the JSON status line.  Any failure raises and exits non-zero;
 with no CUDA device it exits 1 before printing any result.
@@ -64,10 +76,11 @@ from multigridbarrier_tpu_torch.solver.ndsolve import NDSymbolic, node_coords
 C_EXACT = {5: 27.360702531510, 6: 15.4183231432}
 FLOOR_BAND_7 = (9.415747, 9.415769)  # tests/test_ground_truth.py FLOOR_BAND[7]
 TOL = {"float64": 1e-12, "float32": 1e-5}
-EXACT = ("segment_sum", "segment_add_", "row_gather", "take_along_rows")
+EXACT = ("table_sum", "segment_sum", "segment_add_", "row_gather", "take_along_rows")
 REPLACES = {
     "he_assemble": "multigridbarrier_tpu/runtime/pallas_kernels.py:56",
     "element_matvec": "tools/probe_pallas_gather.py:196",
+    "hvp": "tools/probe_pallas_gather.py:196",
     "table_sum": "tools/probe_pallas_gather.py:124",
     "segment_sum": "tools/probe_pallas_gather.py:124",
     "segment_add_": "tools/probe_pallas_gather.py:124",
@@ -77,13 +90,14 @@ REPLACES = {
 SOURCE = {
     "he_assemble": "he_assemble.cu",
     "element_matvec": "element_matvec.cu",
+    "hvp": "hvp.cu",
     "table_sum": "table_sum.cu",
     "segment_sum": "table_sum.cu",
     "segment_add_": "table_sum.cu",
     "row_gather": "row_gather.cu",
     "take_along_rows": "row_gather.cu",
 }
-DENSE_PATH = ("he_assemble", "element_matvec", "table_sum", "segment_sum")
+DENSE_PATH = ("he_assemble", "hvp", "table_sum", "segment_sum")
 ND_PATH = DENSE_PATH + ("segment_add_", "row_gather")
 # Roofline of one H100 SXM: 3.35 TB/s HBM3; 67 TFLOP/s for float32 outside
 # the tensor cores and for float64 (its tensor-core peak, the higher of the
@@ -143,14 +157,15 @@ class Case:
     `planned` is the same launch through a plan, `timed` and
     `timed_planned` what the timing loops call where the checked call must
     not be repeated (an in-place update), `extra` more yardsticks to time
-    {label: closure}."""
+    {label: closure}, `exact` other entries of the same kernel whose
+    results must equal the kernel's bit for bit {label: closure}."""
 
     def __init__(self, name, shape, kernel, plain, library, nbytes_, flops, dtype,
-                 planned=None, timed=None, timed_planned=None, extra=None):
+                 planned=None, timed=None, timed_planned=None, extra=None, exact=None):
         self.name, self.shape, self.dtype = name, shape, dtype
         self.kernel, self.plain, self.library = kernel, plain, library
         self.bytes, self.flops = nbytes_, flops
-        self.planned, self.extra = planned, extra or {}
+        self.planned, self.extra, self.exact = planned, extra or {}, exact or {}
         self.timed, self.timed_planned = timed or kernel, timed_planned or planned
         self.expect = {}  # output row -> value it must hold (NaN: any NaN)
 
@@ -160,18 +175,42 @@ class Case:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def he_case(shape, dtype, dev, rng):
+def he_cases(shape, dtype, dev, rng):
+    """Kernel A at one shape, two cases: the weighted entry (what a Newton
+    step launches: W = F2 * w formed in the kernel) and the entry that is
+    given W.  Each is held to its plain version (einsums) within the
+    tolerance, and exactly to the same kernel's other entries."""
     ne, q, k, c = shape
     P = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
-    W = rng.standard_normal((ne, q, k, k))
-    W = torch.tensor(W + W.transpose(0, 1, 3, 2), dtype=dtype, device=dev)
-    return Case(
+    F2 = rng.standard_normal((ne * q, k, k))
+    F2 = torch.tensor(F2 + F2.transpose(0, 2, 1), dtype=dtype, device=dev)
+    F2[:, 0, 1] += 0.5  # not symmetric, so the two block orders differ
+    F2t = F2.transpose(1, 2).contiguous().transpose(1, 2)  # (l, j) in memory
+    w = torch.tensor(rng.uniform(0.1, 2.0, ne * q), dtype=dtype, device=dev)
+    W = (F2 * w[:, None, None]).reshape(ne, q, k, k)
+    plan = ck.HePlan(P, w)
+    out_bytes = ne * c * c * P.element_size()
+    flops = 2 * ne * q * k * c * (k + c)
+    given = Case(
         "he_assemble", shape,
         lambda: ck.he_assemble(P, W), lambda: ck.he_assemble_plain(P, W),
         lambda: torch.einsum("eqjc,eqjl,eqld->ecd", P, W, P),
-        nbytes(P, W) + ne * c * c * P.element_size(),
-        2 * ne * q * k * c * (k + c), dtype,
+        nbytes(P, W) + out_bytes, flops, dtype, planned=lambda: plan(W),
     )
+    weighted = Case(
+        "he_assemble", f"{shape} weighted",
+        lambda: ck.he_assemble_weighted(P, F2, w),
+        lambda: ck.he_assemble_weighted_plain(P, F2, w),
+        lambda: torch.einsum("eqjc,eqjl,eqld->ecd", P,
+                             (F2 * w[:, None, None]).reshape(ne, q, k, k), P),
+        nbytes(P, F2, w) + out_bytes, flops + ne * q * k * k, dtype,
+        planned=lambda: plan.weighted(F2),
+        exact={"he_assemble on the product F2 * w": lambda: ck.he_assemble(P, W),
+               "F2 with transposed blocks": lambda: plan.weighted(F2t)},
+        extra={"F2 * w, contiguous, then he_assemble (three launches)": lambda: plan(
+            (F2t * w[:, None, None]).reshape(ne, q, k, k).contiguous())},
+    )
+    return [weighted, given]
 
 
 def matvec_case(basis, dtype, dev, rng):
@@ -187,18 +226,57 @@ def matvec_case(basis, dtype, dev, rng):
     )
 
 
-def table_case(basis, dtype, dev, rng):
-    m, tbl = basis.m, basis.scatter_idx
-    rows = basis.nelem * basis.nl
-    src = torch.tensor(rng.standard_normal((rows, 2)), dtype=dtype, device=dev)
+def hvp_case(level, basis, dtype, dev, rng):
+    """The fused hvp on one level: against its plain version within the
+    tolerance, and exactly against kernel B followed by kernel C.  Bytes:
+    He, idx, the table, v and the result, each once."""
+    m, nl, tbl = basis.m, basis.nl, basis.scatter_idx
+    C = 2 * nl
+    He = torch.tensor(rng.standard_normal((basis.nelem, C, C)), dtype=dtype, device=dev)
+    vp = torch.tensor(rng.standard_normal((2, m + 1)), dtype=dtype, device=dev)
+    vp[:, m] = 0.0
+    plan = basis.table_plan
+    n_rows = 2 * int((tbl < basis.nelem * nl).sum())  # He rows the sum reads
+
+    def two_launches():
+        return ck.table_sum(ck.element_matvec(He, basis.idx, vp), tbl, m).T
+
+    return Case(
+        "hvp", f"level {level}: ({basis.nelem},{C},{C}), m={m}, table width {tbl.shape[1]}",
+        lambda: ck.hvp(He, basis.idx, tbl, vp, m),
+        lambda: ck.hvp_plain(He, basis.idx, tbl, vp, m), None,
+        nbytes(He, basis.idx, tbl, vp) + 2 * (m + 1) * He.element_size(),
+        n_rows * (2 * C + 1), dtype, planned=lambda: plan.hvp(He, vp),
+        exact={"B then C": two_launches},
+        extra={"B then C (two launches)": two_launches},
+    )
+
+
+def table_cases(basis, dtype, dev, rng):
+    """Kernel C's table_sum on one level in both layouts: (rows, 2) ->
+    (m+1, 2), and element-major (nelem, 2*nl) -> field-major (2, m+1).  The
+    library yardstick of both is index_add_ by each source row's node."""
+    m, nl, tbl = basis.m, basis.nl, basis.scatter_idx
+    rows = basis.nelem * nl
+    em = torch.tensor(rng.standard_normal((basis.nelem, 2 * nl)), dtype=dtype, device=dev)
+    src = em.reshape(basis.nelem, 2, nl).permute(0, 2, 1).reshape(rows, 2).contiguous()
     node = basis.idx.reshape(-1).long()  # node of each source row; pad = m
     n_add = int((tbl < rows).sum())
-    return Case(
-        "table_sum", (m + 1, tbl.shape[1]),
-        lambda: ck.table_sum(src, tbl, m), lambda: ck.table_sum_plain(src, tbl, m),
-        lambda: src.new_zeros((m + 1, 2)).index_add_(0, node, src),
-        nbytes(src, tbl) + (m + 1) * 2 * src.element_size(), n_add * 2, dtype,
-    )
+    plan = basis.table_plan
+    args = (nbytes(src, tbl) + (m + 1) * 2 * src.element_size(), n_add * 2, dtype)
+    library = lambda: src.new_zeros((m + 1, 2)).index_add_(0, node, src)  # noqa: E731
+    return [
+        Case("table_sum", (m + 1, tbl.shape[1]),
+             lambda: ck.table_sum(src, tbl, m), lambda: ck.table_sum_plain(src, tbl, m),
+             library, *args, planned=lambda: plan(src)),
+        Case("table_sum", f"{(m + 1, tbl.shape[1])} element-major in, field-major out",
+             lambda: ck.table_sum_em(em, tbl, m, nl),
+             lambda: ck.table_sum_em_plain(em, tbl, m, nl), library, *args,
+             planned=lambda: plan.em(em),
+             exact={"transpose of table_sum": lambda: ck.table_sum(src, tbl, m).T},
+             extra={"permute copy, table_sum, transposed view (two launches)": lambda: plan(
+                 em.reshape(basis.nelem, 2, nl).permute(0, 2, 1).reshape(rows, 2).contiguous()).T}),
+    ]
 
 
 def segment_case(label, src, lst, off):
@@ -296,13 +374,18 @@ def kernel_cases(g6, g7, sym7, dtype, rng):
     f6 = g6.bases["dirichlet"][-1]
     nl = f7.nl
     cases = [
-        he_case((f7.nelem, f7.nq, 4, 2 * nl), dtype, dev, rng),
-        he_case((8, 7, 4, 12), dtype, dev, rng),
-        he_case((16, 4, 3, 6), dtype, dev, rng),
+        *he_cases((f7.nelem, f7.nq, 4, 2 * nl), dtype, dev, rng),
+        *he_cases((f6.nelem, f6.nq, 4, 2 * nl), dtype, dev, rng),
+        *he_cases((8, 7, 4, 12), dtype, dev, rng),
+        *he_cases((16, 4, 3, 6), dtype, dev, rng),
         matvec_case(d4, dtype, dev, rng),
         matvec_case(f6, dtype, dev, rng),
-        table_case(f7, dtype, dev, rng),
-        table_case(g6.bases["dirichlet"][2], dtype, dev, rng),
+        # the fused hvp: L=7's largest dense level first (what an L=7 solve
+        # launches most), then every other level of L=7
+        *(hvp_case(lvl, g7.bases["dirichlet"][lvl], dtype, dev, rng)
+          for lvl in (4, 6, 5, 3, 2, 1, 0)),
+        *table_cases(f7, dtype, dev, rng),
+        *table_cases(g6.bases["dirichlet"][2], dtype, dev, rng),
     ]
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
     rnd = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)  # noqa: E731
@@ -397,6 +480,9 @@ def check_kernels(g6, g7, sym7):
             ok, err, rel = same(case.kernel(), ref, tol, case.expect)
             if case.planned:
                 ok = ok and same(case.planned(), ref, tol, case.expect)[0]
+            wrong = [label for label, fn in case.exact.items()
+                     if not same(fn(), case.kernel(), 0.0, {})[0]]
+            ok = ok and not wrong
             torch.cuda.synchronize()
             ms = median_ms(case.timed)
             plain_ms = median_ms(case.plain)
@@ -414,16 +500,21 @@ def check_kernels(g6, g7, sym7):
                 fields.update(
                     planned_ms=median_ms(case.timed_planned), host_us=host_us(case.timed),
                     planned_host_us=host_us(case.timed_planned),
-                    library_host_us=host_us(case.library),
+                    library_host_us=host_us(case.library) if case.library else None,
                 )
                 line += (f" planned_ms={fields['planned_ms']:.4f} host_us={fields['host_us']:.2f} "
-                         f"planned_host_us={fields['planned_host_us']:.2f} "
-                         f"library_host_us={fields['library_host_us']:.2f}")
+                         f"planned_host_us={fields['planned_host_us']:.2f}")
+                if case.library:
+                    line += f" library_host_us={fields['library_host_us']:.2f}"
             for label, fn in case.extra.items():
                 line += f" [{label}: ms={median_ms(fn):.4f} host_us={host_us(fn):.2f}]"
+            if case.exact:
+                line += f" exact: {', '.join(case.exact)}"
             print(line + (" ok" if ok else " FAIL"), flush=True)
             if not ok:
-                raise RuntimeError(f"{case.name} {case.shape} {dname}: kernel disagrees with plain")
+                raise RuntimeError(
+                    f"{case.name} {case.shape} {dname}: kernel disagrees with plain"
+                    + (f"; entries that differ from it: {wrong}" if wrong else ""))
             if dtype == torch.float64 and case.name not in results:
                 results[case.name] = fields
     return results
@@ -476,6 +567,49 @@ def check_capture(sym7, dtype=torch.float64):
           "inputs equal the eager launches bit for bit", flush=True)
 
 
+def check_capture_step(g7, dtype=torch.float64):
+    """Capture readiness of the Newton step's planned launches at the L=7
+    fine level: one weighted he_assemble (HePlan), one element-major table
+    sum (TablePlan) and one fused hvp on the element Hessians just
+    assembled are recorded into one CUDA graph and replayed twice on
+    refilled inputs; each replay must equal the eager wrappers bit for
+    bit."""
+    dev = torch.device("cuda")
+    basis = g7.bases["dirichlet"][-1]
+    nelem, nl, nq, m = basis.nelem, basis.nl, basis.nq, basis.m
+    rng = np.random.default_rng(8)
+    fill = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)  # noqa: E731
+    P, w = fill(nelem, nq, 4, 2 * nl), fill(nelem * nq).abs()
+    he, tab = ck.HePlan(P, w), basis.table_plan
+    F2, gf, vp = fill(nelem * nq, 4, 4), fill(nelem, 2 * nl), fill(2, m + 1)
+    tab.hvp(he.weighted(F2), vp), tab.em(gf)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_he = he.weighted(F2)
+        g_gv = tab.em(gf)
+        g_hv = tab.hvp(g_he, vp)
+    recorded = {k: ck.LAUNCHES[k] - before[k] for k in ("he_assemble", "table_sum", "hvp")}
+    if recorded != {"he_assemble": 1, "table_sum": 1, "hvp": 1}:
+        raise RuntimeError(f"capture: recorded launches {recorded}")
+    for replay in (1, 2):
+        fresh = fill(nelem * nq, 4, 4), fill(nelem, 2 * nl), fill(2, m + 1)
+        for t, new in zip((F2, gf, vp), fresh):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_he = ck.he_assemble_weighted(P, fresh[0], w)
+        want = (want_he, ck.table_sum_em(fresh[1], basis.scatter_idx, m, nl),
+                ck.hvp(want_he, basis.idx, basis.scatter_idx, fresh[2], m))
+        if not all(torch.equal(a, b) for a, b in zip((g_he, g_gv, g_hv), want)):
+            raise RuntimeError(f"capture: replay {replay} of the step's launches differs "
+                               "from the eager launches")
+    print(f"capture: weighted he_assemble ({nelem} elements), element-major table sum and "
+          f"fused hvp (m={m}) of the L=7 fine level recorded into one CUDA graph; 2 replays "
+          "on refilled inputs equal the eager launches bit for bit", flush=True)
+
+
 def solve(geometry, label):
     """One amgb solve with the launch counters reset just before it;
     returns (sol, c_dot_Dz, wall seconds, launches)."""
@@ -499,9 +633,13 @@ def check_pin(label, c, L):
 
 
 def check_launches(label, launches, path):
+    """Every kernel of the path launched, and kernel B, which the fused hvp
+    absorbed, did not."""
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"{label}: kernels {missing} never launched: {launches}")
+    if launches["element_matvec"]:
+        raise RuntimeError(f"{label}: element_matvec launched on the main path: {launches}")
 
 
 def nd_levels(geometry):
@@ -541,8 +679,15 @@ def main() -> int:
     sym7, sym_s = nd_fine_symbolic(g7)
     print(f"L=7 fine-level ND symbolic: {sym7.ngroups} groups, N={sym7.N}, "
           f"{sym_s:.2f}s", flush=True)
+    f7 = g7.bases["dirichlet"][-1]
+    for dtype in (torch.float64, torch.float32):
+        cfg = ck.he_assemble_config(dtype, f7.nelem, f7.nq, 4, 2 * f7.nl, weighted=True)
+        print(f"he_assemble ({f7.nelem},{f7.nq},4,{2 * f7.nl}) {str(dtype).split('.')[-1]}: "
+              f"{cfg['elements_per_cta']} elements per CTA, {cfg['threads']} threads and "
+              f"{cfg['smem_bytes']} bytes of shared memory per CTA, {cfg['ctas']} CTAs", flush=True)
     kernels = check_kernels(g6, g7, sym7)
     check_capture(sym7)
+    check_capture_step(g7)
 
     # phase 3: L=5, default configuration (every level dense)
     sol, c, wall, launches = solve(mt.fem2d(L=5), "L=5")

@@ -1,6 +1,10 @@
-// Kernel C: gather-table sums, three entries
+// Kernel C: gather-table sums, four entries
 //
 //   table_sum:     out[a, f] = sum_w src[tbl[a, w], f]   for a < m,   out[m, :] = 0
+//   table_sum_em:  the same sum read from the element-major layout the
+//                  gradient contraction produces, src (nelem, nf*nl) with
+//                  table entry j = e*nl + slot at src[e, f*nl + slot], and
+//                  written field-major, out (nf, m+1)
 //   segment_sum:   out[a, f] = sum_{off[a] <= j < off[a+1]} src[list[j], f]
 //                  (list absent: src[j, f])
 //   segment_add_:  dst[ids[a], f] += the same sum, for a < nseg, in place
@@ -9,17 +13,23 @@
 // nelem*nl) read as zero.  Replaces tools/probe_pallas_gather.py:pallas_tblsum
 // (kernel body k_tblsum), which is the scatter_idx branch of
 // multigridbarrier_tpu/solver/linsolve.py:_node_sum.  In the port table_sum
-// is the second half of hvp, and on its own it serves
-// LevelBasis.scatter_add (the gradient scatter of every Newton step) and
-// diag_of.
+// serves LevelBasis.scatter_add (R' y), table_sum_em the gradient scatter of
+// every Newton step and diag_of; the node sum of hvp is fused into hvp.cu.
 //
-// What bounds table_sum on an H100: one table row (width 6 at fem2d) and
-// `width` gathered values per output, one add each — purely memory- and
-// launch-bound, with m+1 <= 16k rows at fem2d L <= 7.  Design: one thread
-// per (node, field) output, threads along the contiguous field axis so
-// writes coalesce; the sum runs in the table's order in a register.  No
-// atomics, so the result is deterministic, and the pad row m is written as
-// zero.
+// What bounds table_sum on an H100: one table row (width 6 at the fem2d fine
+// level, thousands on the coarsest levels, where every element touches the
+// same few nodes) and `width` gathered values per output, one add each —
+// bytes and latency, with m+1 <= 16k rows at fem2d L <= 7.  Design: a group
+// of G lanes of one warp owns an output (G the power of two that covers the
+// width, at most 32).  Lane g loads table entry w0 + g (neighbouring lanes
+// read neighbouring entries of the row-major table) and gathers its source
+// value, so all gathers of a round are in flight together, and the next
+// round's are started before this round is added; on rows wider than a warp
+// a lane takes four entries a round, G apart.  Then every lane of the group
+// adds the round's values in table order (warp shuffles), from zero:
+// the sum a one-thread loop over the row gives, bit for bit (a sentinel adds
+// +0, which changes nothing).  No atomics; the pad row m is written as zero.
+// The two layouts differ only in where a source value and an output lie.
 //
 // segment_sum is the CSR-offset form of the same gather sum, for sums whose
 // fan-in is skewed, where a padded table would be mostly sentinel: the host
@@ -72,37 +82,87 @@
 
 namespace {
 
-template <typename T>
-__global__ void table_sum_kernel(const T* __restrict__ src,
-                                 const int32_t* __restrict__ tbl,
-                                 T* __restrict__ out, int64_t rows, int64_t m,
-                                 int width, int f) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= (m + 1) * f) return;
-  const int64_t a = i / f;
-  const int col = static_cast<int>(i - a * f);
-  T acc = T(0);
-  if (a < m) {
-    const int32_t* row = tbl + a * width;
-    for (int w = 0; w < width; ++w) {
-      const int64_t j = row[w];
-      if (j >= 0 && j < rows) acc += src[j * f + col];
+constexpr int kTableThreads = 128;
+
+constexpr int kWide = 4;  // entries per lane and round on rows wider than a warp
+
+// EM: src is element-major (nelem, f*nl) and out field-major (f, m+1);
+// otherwise src is (rows, f) and out (m+1, f).  G = 1 << shift lanes per
+// output, U entries per lane and round: a round covers U*G consecutive table
+// entries, entry w0 + u*G + g by lane g.
+template <typename T, bool EM, int U>
+__global__ void __launch_bounds__(kTableThreads)
+    table_sum_kernel(const T* __restrict__ src, const int32_t* __restrict__ tbl,
+                     T* __restrict__ out, int64_t rows, int64_t m, int width,
+                     int f, int nl, int shift) {
+  const int G = 1 << shift;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1);
+  const int first = lane - g;  // the group's first lane
+  const int64_t o =
+      (static_cast<int64_t>(blockIdx.x) * kTableThreads + threadIdx.x) >> shift;
+  const bool live = o < (m + 1) * f;
+  int64_t a = 0;
+  int col = 0;
+  if (live) {
+    if (EM) {
+      col = static_cast<int>(o / (m + 1));
+      a = o - col * (m + 1);
+    } else {
+      a = o / f;
+      col = static_cast<int>(o - a * f);
     }
   }
-  out[i] = acc;
+  const bool real = live && a < m;
+  const int32_t* row = tbl + a * width;
+  auto fetch = [&](int w) -> T {
+    if (!real || w >= width) return T(0);
+    const int64_t j = __ldg(row + w);
+    if (j < 0 || j >= rows) return T(0);
+    if (EM) {
+      const int e = static_cast<int>(j) / nl;  // 32-bit: j came from the table
+      return __ldg(src + static_cast<int64_t>(e) * f * nl + col * nl + (j - e * nl));
+    }
+    return __ldg(src + j * f + col);
+  };
+  T acc = T(0);
+  T next[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) next[u] = fetch(u * G + g);
+  for (int w0 = 0; w0 < width; w0 += U * G) {
+    T cur[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      cur[u] = next[u];
+      next[u] = fetch(w0 + (U + u) * G + g);  // in flight during the adds
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int l = 0; l < G; ++l) acc += __shfl_sync(0xffffffffu, cur[u], first + l);
+    }
+  }
+  if (live && g == 0) out[o] = acc;
 }
 
-template <typename T>
+int group_shift(int width) {
+  int shift = 0;
+  while ((1 << shift) < width && shift < 5) ++shift;
+  return shift;
+}
+
+template <typename T, bool EM>
 int launch(const void* src, const int32_t* tbl, void* out, int64_t rows,
-           int64_t m, int width, int f, void* stream) {
+           int64_t m, int width, int f, int nl, void* stream) {
   const int64_t total = (m + 1) * f;
   if (total <= 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  table_sum_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(src), tbl, static_cast<T*>(out), rows, m, width,
-      f);
+  const int shift = group_shift(width);
+  const int64_t per_block = kTableThreads >> shift;
+  const int64_t blocks = (total + per_block - 1) / per_block;
+  auto kernel = width > 32 ? table_sum_kernel<T, EM, kWide> : table_sum_kernel<T, EM, 1>;
+  kernel<<<static_cast<unsigned>(blocks), kTableThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(src), tbl, static_cast<T*>(out), rows, m, width, f,
+      nl, shift);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,13 +311,26 @@ int launch_segments(const void* src, const int32_t* list, const int32_t* off,
 extern "C" int mgb_table_sum_f64(const void* src, const int32_t* tbl,
                                  void* out, int64_t rows, int64_t m,
                                  int width, int f, void* stream) {
-  return launch<double>(src, tbl, out, rows, m, width, f, stream);
+  return launch<double, false>(src, tbl, out, rows, m, width, f, 1, stream);
 }
 
 extern "C" int mgb_table_sum_f32(const void* src, const int32_t* tbl,
                                  void* out, int64_t rows, int64_t m,
                                  int width, int f, void* stream) {
-  return launch<float>(src, tbl, out, rows, m, width, f, stream);
+  return launch<float, false>(src, tbl, out, rows, m, width, f, 1, stream);
+}
+
+// src (rows / nl, f*nl) element-major -> out (f, m+1) field-major.
+extern "C" int mgb_table_sum_em_f64(const void* src, const int32_t* tbl,
+                                    void* out, int64_t rows, int64_t m,
+                                    int width, int f, int nl, void* stream) {
+  return launch<double, true>(src, tbl, out, rows, m, width, f, nl, stream);
+}
+
+extern "C" int mgb_table_sum_em_f32(const void* src, const int32_t* tbl,
+                                    void* out, int64_t rows, int64_t m,
+                                    int width, int f, int nl, void* stream) {
+  return launch<float, true>(src, tbl, out, rows, m, width, f, nl, stream);
 }
 
 // ids absent: segment_sum writes out[a]; ids given: segment_add_ adds into

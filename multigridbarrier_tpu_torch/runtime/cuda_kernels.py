@@ -4,26 +4,31 @@ The counterpart of multigridbarrier_tpu/runtime/pallas_kernels.py (and of
 the gather kernels probed in tools/probe_pallas_gather.py):
 
   A. he_assemble      element Hessians He = P^T W P        csrc/he_assemble.cu
+     he_assemble_weighted   the same with W = F2 * w formed in the kernel
   B. element_matvec   per-element He[e] @ v[idx[e]]        csrc/element_matvec.cu
+     hvp              gather + element matvec + node sum   csrc/hvp.cu
   C. table_sum        gather-table node sum (no atomics)   csrc/table_sum.cu
+     table_sum_em     the same from the element-major layout, field-major out
      segment_sum      its CSR-offset form, for skewed fan-in
      segment_add_     the same sum added in place into listed rows
   D. row_gather       out = v[idx] along rows              csrc/row_gather.cu
      take_along_rows  out[r, l] = v[idx[r, l], l]
 
-hvp = B then C; LevelBasis.scatter_add = C.  The deterministic sums of the
-Newton matrix are C's: element Hessians to deduplicated values and the
-nested-dissection front assembly (one segment_sum per front group, reading
-its sources through the group's list) and the forward sweep's boundary
-updates (segment_add_).  The other gathers of the nested-dissection fine
-level are D's row_gather.
+The matrix-free H v of the solver is the one fused launch hvp, which equals
+B then C bit for bit; LevelBasis.scatter_add = C.  The deterministic sums
+of the Newton matrix are C's: element Hessians to deduplicated values and
+the nested-dissection front assembly (one segment_sum per front group,
+reading its sources through the group's list) and the forward sweep's
+boundary updates (segment_add_).  The other gathers of the
+nested-dissection fine level are D's row_gather.
 
-The index tensors of those sums and gathers never change after a level is
-set up, so the solver binds each to a plan (GatherPlan, SegmentPlan): the
-plan validates and keeps the index tensors once, and a call checks only
-the float operand, allocates the output and launches.  The general
-wrappers check everything on every call; a plan and its wrapper launch the
-same kernel and count in the same LAUNCHES entry.
+The operands that never change after a level is set up are bound to plans
+(HePlan: the level's P and quadrature weights; TablePlan: the gather table
+and the element index; GatherPlan, SegmentPlan: index tensors): the plan
+validates and keeps them once, and a call checks only the float operand,
+allocates the output and launches.  The general wrappers check everything
+on every call; a plan and its wrapper launch the same kernel and count in
+the same LAUNCHES entry.
 
 The CUDA sources are compiled with nvcc for sm_90a, one nvcc per source,
 all started together, and linked into one shared library with a plain C
@@ -53,7 +58,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-_SOURCES = ("he_assemble.cu", "element_matvec.cu", "table_sum.cu", "row_gather.cu")
+_SOURCES = ("he_assemble.cu", "element_matvec.cu", "hvp.cu", "table_sum.cu",
+            "row_gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,6 +68,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "he_assemble": 0,
     "element_matvec": 0,
+    "hvp": 0,
     "table_sum": 0,
     "segment_sum": 0,
     "segment_add_": 0,
@@ -156,11 +163,20 @@ def load():
                 fn = getattr(lib, f"mgb_he_assemble_{t}")
                 fn.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
                 fn.restype = i32
+                fn = getattr(lib, f"mgb_he_assemble_weighted_{t}")
+                fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+                fn.restype = i32
                 fn = getattr(lib, f"mgb_element_matvec_{t}")
                 fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i64, vp]
                 fn.restype = i32
+                fn = getattr(lib, f"mgb_hvp_{t}")
+                fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i32, i32, vp]
+                fn.restype = i32
                 fn = getattr(lib, f"mgb_table_sum_{t}")
                 fn.argtypes = [vp, vp, vp, i64, i64, i32, i32, vp]
+                fn.restype = i32
+                fn = getattr(lib, f"mgb_table_sum_em_{t}")
+                fn.argtypes = [vp, vp, vp, i64, i64, i32, i32, i32, vp]
                 fn.restype = i32
                 fn = getattr(lib, f"mgb_segment_sum_{t}")
                 fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, vp]
@@ -169,6 +185,9 @@ def load():
                     fn = getattr(lib, f"mgb_{name}_{t}")
                     fn.argtypes = [vp, vp, vp, i64, i64, i32, vp]
                     fn.restype = i32
+            lib.mgb_he_assemble_config.argtypes = [
+                i32, i64, i32, i32, i32, i32, ctypes.POINTER(i64)]
+            lib.mgb_he_assemble_config.restype = i32
             _LIB = lib
     return _LIB
 
@@ -221,6 +240,31 @@ def _launch(name, fn, index, *args):
     LAUNCHES[name] += 1
 
 
+def _plan_index(name, key, t, device=None):
+    """Validate one static index tensor of a plan: int32, contiguous, on
+    the CPU or a CUDA device (the plan's, if given)."""
+    if t.device.type not in ("cpu", "cuda") or (device is not None and t.device != device):
+        raise ValueError(f"{name}: {key} on {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected torch.int32")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {key} is not contiguous")
+    return t
+
+
+def _plan_operand(name, key, t, device, rows):
+    """The per-call check of a plan's float operand: device, dtype,
+    contiguity, rank and leading size."""
+    if t.device != device:
+        raise ValueError(f"{name}: {key} on {t.device}, the plan is on {device}")
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
+    if not t.is_contiguous() or t.ndim not in (1, 2):
+        raise ValueError(f"{name}: {key} must be contiguous, 1-D or 2-D")
+    if t.shape[0] != rows:
+        raise ValueError(f"{name}: {key} has {t.shape[0]} rows, the plan expects {rows}")
+
+
 # ---------------------------------------------------------------------------
 # A. element Hessian assembly
 # ---------------------------------------------------------------------------
@@ -233,27 +277,111 @@ def he_assemble_plain(P: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return torch.einsum("eqjc,eqjd->ecd", P, T)
 
 
+def he_assemble_weighted_plain(P: torch.Tensor, F2: torch.Tensor,
+                               w: torch.Tensor) -> torch.Tensor:
+    """he_assemble_plain(P, W) with W[e,q] = F2[e*nq+q] * w[e*nq+q]: the
+    barrier Hessian rows F2 (n, k, k) times the quadrature weights w (n,)."""
+    nelem, nq, k, _ = P.shape
+    W = (F2 * w[:, None, None]).reshape(nelem, nq, k, k).contiguous()
+    return he_assemble_plain(P, W)
+
+
+class HePlan:
+    """he_assemble bound to a level's static operands.
+
+    P (nelem, nq, k, C) and, for the weighted entry, the quadrature weights
+    w (nelem*nq,) are validated once (device, dtype, contiguity, shape, the
+    kernel's limits) and kept alive; plan(W) = he_assemble(P, W) and
+    plan.weighted(F2) = he_assemble_weighted(P, F2, w), with only W or F2
+    checked per call.  F2 (nelem*nq, k, k) may hold its (j, l) blocks in
+    either order (contiguous, or the transposed view that torch.func's
+    hessian returns): the kernel reads both without a copy.  On a CUDA
+    device the kernel library is built and the entry points resolved here."""
+
+    def __init__(self, P: torch.Tensor, w=None):
+        name = "he_assemble"
+        tensors = {"P": P} if w is None else {"P": P, "w": w}
+        self.device = _check(name, tensors, ("P",))
+        if P.ndim != 4:
+            raise ValueError(f"{name}: P must be 4-D (nelem, nq, k, C)")
+        self.P, self.w, self.dtype = P, w, P.dtype
+        self.nelem, self.nq, self.k, self.C = P.shape
+        if w is not None and tuple(w.shape) != (self.nelem * self.nq,):
+            raise ValueError(
+                f"{name}: w shape {tuple(w.shape)} != {(self.nelem * self.nq,)}")
+        self._fn = self._fn_w = None
+        if self.device.type == "cuda":
+            if self.C > 32 or self.nq * self.k > 64:
+                raise ValueError(
+                    f"{name}: kernel supports C <= 32 and nq*k <= 64 "
+                    f"(got C={self.C}, nq*k={self.nq * self.k})"
+                )
+            self._fn = _kernel("he_assemble", P.dtype)
+            self._fn_w = _kernel("he_assemble_weighted", P.dtype)
+
+    def _operand(self, key, t, shape):
+        if t.device != self.device:
+            raise ValueError(f"he_assemble: {key} on {t.device}, expected {self.device}")
+        if t.dtype != self.dtype:
+            raise TypeError(f"he_assemble: {key} has dtype {t.dtype}, expected {self.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"he_assemble: {key} shape {tuple(t.shape)} != {shape}")
+
+    def _out(self):
+        return torch.empty((self.nelem, self.C, self.C), dtype=self.dtype, device=self.device)
+
+    def __call__(self, W: torch.Tensor) -> torch.Tensor:
+        """W (nelem, nq, k, k) -> He (nelem, C, C)."""
+        self._operand("W", W, (self.nelem, self.nq, self.k, self.k))
+        if not W.is_contiguous():
+            raise ValueError("he_assemble: W is not contiguous")
+        if self.device.type == "cpu":
+            return he_assemble_plain(self.P, W)
+        out = self._out()
+        _launch("he_assemble", self._fn, self.device.index, self.P.data_ptr(),
+                W.data_ptr(), out.data_ptr(), self.nelem, self.nq, self.k, self.C)
+        return out
+
+    def weighted(self, F2: torch.Tensor) -> torch.Tensor:
+        """F2 (nelem*nq, k, k) -> He (nelem, C, C) with W = F2 * w."""
+        if self.w is None:
+            raise ValueError("he_assemble: the plan has no weights w")
+        self._operand("F2", F2, (self.nelem * self.nq, self.k, self.k))
+        if F2.is_contiguous():
+            transposed = 0
+        elif F2.transpose(1, 2).is_contiguous():
+            transposed = 1
+        else:
+            raise ValueError("he_assemble: F2's (k, k) blocks are not dense")
+        if self.device.type == "cpu":
+            return he_assemble_weighted_plain(self.P, F2, self.w)
+        out = self._out()
+        _launch("he_assemble", self._fn_w, self.device.index, self.P.data_ptr(),
+                F2.data_ptr(), self.w.data_ptr(), out.data_ptr(), self.nelem,
+                self.nq, self.k, self.C, transposed)
+        return out
+
+
 def he_assemble(P: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """P (nelem, nq, k, C), W (nelem, nq, k, k) -> He (nelem, C, C)."""
-    dev = _check("he_assemble", {"P": P, "W": W}, ("P",))
-    if P.ndim != 4 or W.ndim != 4:
-        raise ValueError("he_assemble: P and W must be 4-D")
-    nelem, nq, k, C = P.shape
-    if tuple(W.shape) != (nelem, nq, k, k):
-        raise ValueError(f"he_assemble: W shape {tuple(W.shape)} != {(nelem, nq, k, k)}")
-    if dev.type == "cpu":
-        return he_assemble_plain(P, W)
-    per_elem = (2 * nq * k * C + nq * k * k) * P.element_size()
-    if C > 32 or nq * k > 64 or per_elem > 48 * 1024:
-        raise ValueError(
-            f"he_assemble: kernel supports C <= 32 and nq*k <= 64 within 48 KB "
-            f"of shared memory per element (got C={C}, nq*k={nq * k})"
-        )
-    out = torch.empty((nelem, C, C), dtype=P.dtype, device=dev)
-    _launch("he_assemble", _kernel("he_assemble", P.dtype), dev.index,
-            P.data_ptr(), W.data_ptr(),
-            out.data_ptr(), nelem, nq, k, C)
-    return out
+    return HePlan(P)(W)
+
+
+def he_assemble_weighted(P: torch.Tensor, F2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """P (nelem, nq, k, C), F2 (nelem*nq, k, k), w (nelem*nq,) -> He
+    (nelem, C, C) with W = F2 * w formed inside the kernel."""
+    return HePlan(P, w).weighted(F2)
+
+
+def he_assemble_config(dtype, nelem: int, nq: int, k: int, C: int, weighted: bool = False):
+    """The kernel's launch configuration for a shape on the current CUDA
+    device: elements per CTA, threads per CTA, CTAs, shared memory per CTA."""
+    out = (ctypes.c_int64 * 4)()
+    rc = load().mgb_he_assemble_config(
+        torch.empty((), dtype=dtype).element_size(), nelem, nq, k, C, int(weighted), out)
+    if rc != 0:
+        raise ValueError(f"he_assemble: the kernel does not take nq={nq}, k={k}, C={C}")
+    return dict(zip(("elements_per_cta", "threads", "ctas", "smem_bytes"), out))
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +422,46 @@ def element_matvec(He: torch.Tensor, idx: torch.Tensor, vp: torch.Tensor):
     return out
 
 
+def hvp_plain(He: torch.Tensor, idx: torch.Tensor, tbl: torch.Tensor,
+              vp: torch.Tensor, m: int) -> torch.Tensor:
+    """H @ v as kernel B then kernel C compute it: (nf, m+1), zero pad slot."""
+    return table_sum_plain(element_matvec_plain(He, idx, vp), tbl, m).T.contiguous()
+
+
+def _hvp_shapes(name, He, vp, nelem, nl, m):
+    if He.ndim != 3 or vp.ndim != 2 or vp.shape[1] != m + 1:
+        raise ValueError(f"{name}: He 3-D and vp (nf, m+1) with m={m}, got "
+                         f"{tuple(He.shape)} and {tuple(vp.shape)}")
+    C = vp.shape[0] * nl
+    if tuple(He.shape) != (nelem, C, C):
+        raise ValueError(f"{name}: He shape {tuple(He.shape)} != {(nelem, C, C)}")
+
+
+def _hvp_launch(fn, He, idx_ptr, tbl_ptr, vp, rows, m, width, nl):
+    out = torch.empty_like(vp)
+    _launch("hvp", fn, He.device.index, He.data_ptr(), idx_ptr, tbl_ptr,
+            vp.data_ptr(), out.data_ptr(), rows, m, width, nl, vp.shape[0])
+    return out
+
+
+def hvp(He: torch.Tensor, idx: torch.Tensor, tbl: torch.Tensor, vp: torch.Tensor,
+        m: int) -> torch.Tensor:
+    """The fused matrix-free H @ v: He (nelem, C, C), idx (nelem, nl) int32
+    with entries in [0, m], tbl (m+1, width) int32 gather table over the
+    flat positions e*nl + slot, vp (nf, m+1) with C = nf*nl -> (nf, m+1),
+    equal to table_sum(element_matvec(He, idx, vp), tbl, m).T bit for bit."""
+    dev = _check("hvp", {"He": He, "idx": idx, "tbl": tbl, "vp": vp},
+                 ("He", "vp"), ("idx", "tbl"))
+    if idx.ndim != 2 or tbl.ndim != 2 or tbl.shape[0] != m + 1:
+        raise ValueError("hvp: idx (nelem, nl) and tbl (m+1, width)")
+    nelem, nl = idx.shape
+    _hvp_shapes("hvp", He, vp, nelem, nl, m)
+    if dev.type == "cpu":
+        return hvp_plain(He, idx, tbl, vp, m)
+    return _hvp_launch(_kernel("hvp", He.dtype), He, idx.data_ptr(), tbl.data_ptr(),
+                       vp, nelem * nl, m, tbl.shape[1], nl)
+
+
 # ---------------------------------------------------------------------------
 # C. gather-table node sum
 # ---------------------------------------------------------------------------
@@ -321,12 +489,132 @@ def table_sum(src: torch.Tensor, tbl: torch.Tensor, m: int) -> torch.Tensor:
         )
     if dev.type == "cpu":
         return table_sum_plain(src, tbl, m)
-    f = src.shape[1]
-    out = torch.empty((m + 1, f), dtype=src.dtype, device=dev)
-    _launch("table_sum", _kernel("table_sum", src.dtype), dev.index,
-            src.data_ptr(), tbl.data_ptr(),
-            out.data_ptr(), src.shape[0], m, tbl.shape[1], f)
+    out = torch.empty((m + 1, src.shape[1]), dtype=src.dtype, device=dev)
+    return _table_launch(_kernel("table_sum", src.dtype), src, tbl.data_ptr(), out,
+                         src.shape[0], m, tbl.shape[1], src.shape[1])
+
+
+def table_sum_em_plain(src: torch.Tensor, tbl: torch.Tensor, m: int, nl: int):
+    """table_sum from the element-major layout: src (nelem, nf*nl) holds the
+    value of table entry j = e*nl + slot and field f at src[e, f*nl + slot];
+    returns (nf, m+1) field-major.  The same adds in the same order as
+    table_sum_plain on the (nelem*nl, nf) permutation of src."""
+    nelem = src.shape[0]
+    nf = src.shape[1] // nl
+    rows = src.reshape(nelem, nf, nl).permute(1, 0, 2).reshape(nf, nelem * nl)
+    padded = torch.cat([rows, rows.new_zeros((nf, 1))], dim=1)
+    out = padded[:, tbl[:, 0]]
+    for w in range(1, tbl.shape[1]):
+        out = out + padded[:, tbl[:, w]]
+    out[:, m] = 0.0
     return out
+
+
+def _table_em_shapes(name, src, nelem, nl):
+    if src.ndim != 2 or src.shape[0] != nelem or src.shape[1] % nl or not src.shape[1]:
+        raise ValueError(f"{name}: src must be ({nelem}, nf*{nl}), got {tuple(src.shape)}")
+
+
+def _table_launch(fn, src, tbl_ptr, out, rows, m, width, *layout):
+    _launch("table_sum", fn, src.device.index, src.data_ptr(), tbl_ptr,
+            out.data_ptr(), rows, m, width, *layout)
+    return out
+
+
+def table_sum_em(src: torch.Tensor, tbl: torch.Tensor, m: int, nl: int) -> torch.Tensor:
+    """src (nelem, nf*nl) element-major, tbl (m+1, width) int32 over the flat
+    positions e*nl + slot -> (nf, m+1) field-major, pad column m zero."""
+    dev = _check("table_sum_em", {"src": src, "tbl": tbl}, ("src",), ("tbl",))
+    if tbl.ndim != 2 or tbl.shape[0] != m + 1 or src.ndim != 2:
+        raise ValueError(f"table_sum_em: src 2-D and tbl (m+1, width) with m={m}")
+    _table_em_shapes("table_sum_em", src, src.shape[0], nl)
+    if dev.type == "cpu":
+        return table_sum_em_plain(src, tbl, m, nl)
+    nf = src.shape[1] // nl
+    out = torch.empty((nf, m + 1), dtype=src.dtype, device=dev)
+    return _table_launch(_kernel("table_sum_em", src.dtype), src, tbl.data_ptr(), out,
+                         src.shape[0] * nl, m, tbl.shape[1], nf, nl)
+
+
+class TablePlan:
+    """table_sum, table_sum_em and the fused hvp bound to a level's static
+    tables.
+
+    tbl (m+1, width), the gather table over the flat positions e*nl + slot
+    of nelem elements, and (for hvp) idx (nelem, nl) are validated once
+    (device, int32, contiguity, shapes, table entries not negative, idx
+    entries inside [0, m]) and kept alive.  plan(src) = table_sum(src, tbl,
+    m), plan.em(src) = table_sum_em(src, tbl, m, nl) and plan.hvp(He, vp) =
+    hvp(He, idx, tbl, vp, m), with only the float operands checked per
+    call.  On a CUDA device the kernel library is built and its entry
+    points resolved here."""
+
+    def __init__(self, tbl: torch.Tensor, m: int, nelem: int, nl: int, idx=None):
+        name = "TablePlan"
+        self.device = _plan_index(name, "tbl", tbl).device
+        self.tbl, self.idx = tbl, idx
+        self.m, self.nelem, self.nl = int(m), int(nelem), int(nl)
+        if tbl.ndim != 2 or tbl.shape[0] != self.m + 1 or self.nl <= 0:
+            raise ValueError(f"{name}: tbl must be (m+1, width) with m={m}, nl > 0")
+        self.width, self.rows = tbl.shape[1], self.nelem * self.nl
+        if tbl.numel() and int(tbl.min()) < 0:
+            raise ValueError(f"{name}: negative table entries")
+        if idx is not None:
+            _plan_index(name, "idx", idx, self.device)
+            if tuple(idx.shape) != (self.nelem, self.nl):
+                raise ValueError(f"{name}: idx shape {tuple(idx.shape)} != "
+                                 f"{(self.nelem, self.nl)}")
+            if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) <= self.m):
+                raise ValueError(f"{name}: idx entries outside [0, {self.m}]")
+        self._ptr = (tbl.data_ptr(), None if idx is None else idx.data_ptr())
+        self._fn = {}
+        if self.device.type == "cuda":
+            self._fn = {(key, dt): _kernel(key, dt)
+                        for key in ("table_sum", "table_sum_em", "hvp") for dt in _SUFFIX}
+
+    def _operand(self, name, key, t):
+        if t.device != self.device:
+            raise ValueError(f"{name}: {key} on {t.device}, the plan is on {self.device}")
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+
+    def __call__(self, src: torch.Tensor) -> torch.Tensor:
+        """src (nelem*nl, f) -> (m+1, f), pad row m zero."""
+        self._operand("TablePlan", "src", src)
+        if src.ndim != 2 or src.shape[0] != self.rows:
+            raise ValueError(f"TablePlan: src must be ({self.rows}, f), got {tuple(src.shape)}")
+        if self.device.type == "cpu":
+            return table_sum_plain(src, self.tbl, self.m)
+        out = torch.empty((self.m + 1, src.shape[1]), dtype=src.dtype, device=self.device)
+        return _table_launch(self._fn["table_sum", src.dtype], src, self._ptr[0], out,
+                             self.rows, self.m, self.width, src.shape[1])
+
+    def em(self, src: torch.Tensor) -> torch.Tensor:
+        """src (nelem, nf*nl) element-major -> (nf, m+1) field-major."""
+        self._operand("TablePlan.em", "src", src)
+        _table_em_shapes("TablePlan.em", src, self.nelem, self.nl)
+        if self.device.type == "cpu":
+            return table_sum_em_plain(src, self.tbl, self.m, self.nl)
+        nf = src.shape[1] // self.nl
+        out = torch.empty((nf, self.m + 1), dtype=src.dtype, device=self.device)
+        return _table_launch(self._fn["table_sum_em", src.dtype], src, self._ptr[0], out,
+                             self.rows, self.m, self.width, nf, self.nl)
+
+    def hvp(self, He: torch.Tensor, vp: torch.Tensor) -> torch.Tensor:
+        """He (nelem, C, C), vp (nf, m+1) -> H @ v (nf, m+1), one launch."""
+        if self.idx is None:
+            raise ValueError("TablePlan.hvp: the plan has no idx")
+        self._operand("TablePlan.hvp", "He", He)
+        self._operand("TablePlan.hvp", "vp", vp)
+        if He.dtype != vp.dtype:
+            raise TypeError("TablePlan.hvp: He and vp differ in dtype")
+        _hvp_shapes("TablePlan.hvp", He, vp, self.nelem, self.nl, self.m)
+        if self.device.type == "cpu":
+            return hvp_plain(He, self.idx, self.tbl, vp, self.m)
+        return _hvp_launch(self._fn["hvp", He.dtype], He, self._ptr[1], self._ptr[0], vp,
+                           self.rows, self.m, self.width, self.nl)
 
 
 def segment_sum_plain(src: torch.Tensor, lst, off: torch.Tensor) -> torch.Tensor:
@@ -409,31 +697,6 @@ def segment_add_(dst: torch.Tensor, src: torch.Tensor, lst, off: torch.Tensor,
         "segment_add_", _kernel("segment_sum", src.dtype), src,
         None if lst is None else lst.data_ptr(), off.data_ptr(), ids.data_ptr(),
         dst, ids.shape[0])
-
-
-def _plan_index(name, key, t, device=None):
-    """Validate one static index tensor of a plan: int32, contiguous, on
-    the CPU or a CUDA device (the plan's, if given)."""
-    if t.device.type not in ("cpu", "cuda") or (device is not None and t.device != device):
-        raise ValueError(f"{name}: {key} on {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected torch.int32")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {key} is not contiguous")
-    return t
-
-
-def _plan_operand(name, key, t, device, rows):
-    """The per-call check of a plan's float operand: device, dtype,
-    contiguity, rank and leading size."""
-    if t.device != device:
-        raise ValueError(f"{name}: {key} on {t.device}, the plan is on {device}")
-    if t.dtype not in _SUFFIX:
-        raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
-    if not t.is_contiguous() or t.ndim not in (1, 2):
-        raise ValueError(f"{name}: {key} must be contiguous, 1-D or 2-D")
-    if t.shape[0] != rows:
-        raise ValueError(f"{name}: {key} has {t.shape[0]} rows, the plan expects {rows}")
 
 
 class SegmentPlan:

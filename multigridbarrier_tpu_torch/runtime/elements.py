@@ -10,7 +10,8 @@ dense (nq, nl) block per element plus an (nl,) global-node index list:
 Boundary (Dirichlet-eliminated) nodes are padded to slot `m`, whose basis
 value is 0; gathers read a zero pad row and sums drop the pad slot.  The
 node sum goes through the gather table `scatter_idx` (kernel C of
-runtime/cuda_kernels.py on the GPU), so it needs no atomics.
+runtime/cuda_kernels.py on the GPU), so it needs no atomics; the table and
+idx are bound once per level to a launch plan (LevelBasis.table_plan).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import scipy.sparse as sp
 import torch
 
 from . import native
-from .cuda_kernels import table_sum
+from .cuda_kernels import TablePlan
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -45,6 +46,7 @@ class LevelBasis:
     m: int
     scatter_idx: torch.Tensor
     pair_idx: torch.Tensor
+    _plans: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
 
     @property
     def nelem(self) -> int:
@@ -75,10 +77,27 @@ class LevelBasis:
         out = torch.einsum("eqa,eaf->eqf", self.rloc, ve).reshape(self.n, v.shape[1])
         return out[:, 0] if single else out
 
+    @property
+    def table_plan(self) -> TablePlan:
+        """scatter_idx and idx bound to kernel C's launch plan, built at
+        first use."""
+        plan = self._plans.get("table")
+        if plan is None:
+            plan = self._plans["table"] = TablePlan(
+                self.scatter_idx, self.m, self.nelem, self.nl, idx=self.idx)
+        return plan
+
     def scatter_add(self, flat: torch.Tensor) -> torch.Tensor:
         """Sum per-(element, slot) contributions into nodes: (nelem*nl, f)
         -> (m+1, f) with a zeroed pad row."""
-        return table_sum(flat.contiguous(), self.scatter_idx, self.m)
+        return self.table_plan(flat.contiguous())
+
+    def scatter_add_em(self, contrib: torch.Tensor) -> torch.Tensor:
+        """The same sum from the element-major layout (nelem, f*nl), slot a
+        of field f at column f*nl + a, into the field-major (f, m+1) with a
+        zeroed pad column: the transpose of scatter_add on the
+        (nelem*nl, f) permutation of contrib, without the copy."""
+        return self.table_plan.em(contrib.contiguous())
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         """R.T @ y for y: (n,) or (n, f) -> (m,) or (m, f)."""

@@ -13,14 +13,15 @@ broken quadrature-point space (n, nfields); a level-l Newton correction is
 R_l @ dv.
 
 One Newton step (_SolverCtx.step): barrier rows F0/F1/F2 by torch.func ->
-gradient contraction and node sum (kernel C) -> element Hessians
-(kernel A) -> deduplicated values (kernel C's segment sum) -> a direct
-Newton direction -> damped Armijo line search that rejects non-finite
-steps.  The direction comes from one of two routes:
+gradient contraction and node sum (kernel C, read in the contraction's
+own layout) -> element Hessians (kernel A, which applies the quadrature
+weights to the F2 rows itself) -> deduplicated values (kernel C's segment
+sum) -> a direct Newton direction -> damped Armijo line search that
+rejects non-finite steps.  The direction comes from one of two routes:
 
 * dense (level 0, and every level with nf*m <= backend.dense_threshold):
-  dense Cholesky with a shift ladder and matrix-free refinement (kernels
-  B+C), linsolve.dense_solve;
+  dense Cholesky with a shift ladder and matrix-free refinement (the fused
+  hvp kernel), linsolve.dense_solve;
 * nested dissection (every other level): the multifrontal Cholesky of
   ndsolve.py (kernels C and D) with a two-trip factor-preconditioned CG
   polish on the exact pair-block matvec and a Jacobi fallback on a
@@ -49,7 +50,7 @@ import torch
 from torch.func import grad, hessian, vmap
 
 from ..fem.geometry import Geometry
-from ..runtime.cuda_kernels import GatherPlan, SegmentPlan, he_assemble
+from ..runtime.cuda_kernels import GatherPlan, HePlan, SegmentPlan
 from .convex import Convex, convex_Euclidian_power
 from .linsolve import LevelSystem, dense_solve, he_to_vals, vals_table
 from .ndsolve import NDFactorizer, NDSymbolic, narrow_idx, node_coords
@@ -311,6 +312,7 @@ class _SolverCtx:
         }
         self.nd = {}  # level -> _NDLevel
         self._tables = {}  # level -> linsolve.ValsTable
+        self._he_plans = {}  # level -> HePlan (kernel A bound to P and w)
 
         # Element-local operator tensors per level with the field embedding
         # baked in: P_l[e, q, j, fj*nl + a] = (D_{op_j} R_l) restricted to
@@ -354,22 +356,23 @@ class _SolverCtx:
         F1v = vmap(self._F1)(x, y)  # (n, k)
         gy = (w[:, None] * (t * c + F1v)).reshape(nelem, nq, k)
         gf = torch.einsum("eqj,eqjc->ec", gy, Pl)  # (nelem, nf*nl)
-        gv = basis.scatter_add(
-            gf.reshape(nelem, nf, nl).permute(0, 2, 1).reshape(-1, nf)
-        ).T  # (nf, m+1), pad row zeroed
+        gv = basis.scatter_add_em(gf)  # (nf, m+1), pad column zeroed
 
-        # element Hessians (kernel A) and the Newton direction
-        Y2w = vmap(self._F2)(x, y) * w[:, None, None]  # (n, k, k)
-        He = he_assemble(Pl, Y2w.reshape(nelem, nq, k, k).contiguous())
+        # element Hessians (kernel A forms W = F2 * w) and the Newton direction
+        F2v = vmap(self._F2)(x, y)  # (n, k, k); its (k, k) blocks may be transposed
+        if not (F2v.is_contiguous() or F2v.transpose(1, 2).is_contiguous()):
+            F2v = F2v.contiguous()
         if level not in self._tables:
             self._tables[level] = vals_table(idx, m, nf)
+            self._he_plans[level] = HePlan(Pl, w)
+        He = self._he_plans[level].weighted(F2v)
         table = self._tables[level]
         if level in self._nd_route:
             if level not in self.nd:
                 self.nd[level] = _NDLevel(basis, nf, x)
             dvp = self.nd[level].direction(he_to_vals(He, table), gv)
         else:
-            sys_ = LevelSystem(He, idx, m, basis.scatter_idx, table)
+            sys_ = LevelSystem(He, idx, m, basis.scatter_idx, table, basis.table_plan)
             dvp = dense_solve(sys_, nf, -gv)
         lam2_t = -torch.dot(gv.reshape(-1), dvp.reshape(-1))
 

@@ -8,8 +8,9 @@ is held as per-element Hessian blocks He (nelem, nf*nl, nf*nl).  They are
 reduced to the deduplicated value array of hostsolve.HostPattern by a
 segment sum without atomics (kernel C's segment_sum), each value is placed
 once into a global dense matrix, which is factored with Cholesky and
-refined with matrix-free residuals H v = table_sum(element_matvec(He, v))
-(kernels B and C of runtime/cuda_kernels.py on the GPU).  So the assembled
+refined with matrix-free residuals H v (the fused hvp kernel of
+runtime/cuda_kernels.py on the GPU: gather, element matvec and node sum in
+one launch, equal to kernel B then kernel C bit for bit).  So the assembled
 matrix is the same bit for bit from one run to the next.
 
 Vectors use the field-major layout (nf, m+1): m real coefficients plus one
@@ -23,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..runtime.cuda_kernels import SegmentPlan, element_matvec, table_sum
+from ..runtime.cuda_kernels import SegmentPlan, TablePlan
 from .hostsolve import HostPattern
 
 
@@ -71,6 +72,8 @@ class LevelSystem(NamedTuple):
     m:   subspace size
     scatter_idx: (m+1, width) int32 node-major gather table
     table: the level's ValsTable (built from idx when None)
+    plan: scatter_idx and idx bound to kernel C's TablePlan (the level's
+        LevelBasis.table_plan; built from them when None)
     """
 
     He: torch.Tensor
@@ -78,27 +81,27 @@ class LevelSystem(NamedTuple):
     m: int
     scatter_idx: torch.Tensor
     table: Optional[ValsTable] = None
+    plan: Optional[TablePlan] = None
 
 
-def _node_sum(sys_: LevelSystem, flat: torch.Tensor) -> torch.Tensor:
-    """(nelem*nl, f) per-slot contributions -> (m+1, f), zero pad row."""
-    return table_sum(flat.contiguous(), sys_.scatter_idx, sys_.m)
+def _table_plan(sys_: LevelSystem) -> TablePlan:
+    if sys_.plan is not None:
+        return sys_.plan
+    nelem, nl = sys_.idx.shape
+    return TablePlan(sys_.scatter_idx, sys_.m, nelem, nl, idx=sys_.idx)
 
 
 def hvp(sys_: LevelSystem, vp: torch.Tensor) -> torch.Tensor:
-    """H @ v, matrix-free: per-element matvec (kernel B) then gather-table
-    node sum (kernel C).  vp: (nf, m+1) -> (nf, m+1) with a zero pad slot."""
-    flat = element_matvec(sys_.He, sys_.idx, vp.contiguous())
-    return _node_sum(sys_, flat).T
+    """H @ v, matrix-free, in one fused launch: gather, per-element matvec
+    and gather-table node sum.  vp: (nf, m+1) -> (nf, m+1) with a zero pad
+    slot."""
+    return _table_plan(sys_).hvp(sys_.He, vp.contiguous())
 
 
 def diag_of(sys_: LevelSystem) -> torch.Tensor:
     """diag(H) as (nf, m+1); pad slot set to 1 (harmless inverse)."""
-    He, idx = sys_.He, sys_.idx
-    nelem, nl = idx.shape
-    nf = He.shape[1] // nl
-    d = torch.diagonal(He, dim1=1, dim2=2).reshape(nelem, nf, nl)
-    out = _node_sum(sys_, d.permute(0, 2, 1).reshape(-1, nf)).T.clone()
+    d = torch.diagonal(sys_.He, dim1=1, dim2=2)  # (nelem, nf*nl), element-major
+    out = _table_plan(sys_).em(d.contiguous())
     out[:, sys_.m] = 1.0
     return out
 

@@ -6,11 +6,15 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: max|kernel - plain| / max|plain| <= 1e-12 in float64 and 1e-5
-in float32 (TF32 off) for A and B: the two sides sum the same short
-products in other orders, a few ulps apart.  Kernel D is a copy and C's
-segment_sum and segment_add_ add in list order like their plain versions
-(also the runs of more than 64 entries that a whole block gathers), so
-they are held to exact equality, NaN for NaN.  The dense L=3 solve agrees with the CPU run to 1e-9
+in float32 (TF32 off) for A, B and the fused hvp against their plain
+versions: those are einsums, which sum the same short products in other
+orders, a few ulps apart.  Among themselves the entries of a kernel are
+held to exact equality: HePlan against he_assemble, the weighted entry
+against he_assemble on the product F2 * w, the fused hvp against kernel B
+followed by kernel C.  Kernel D is a copy, and C's table_sum (both
+layouts), segment_sum and segment_add_ add in table or list order like
+their plain versions (also the runs of more than 64 entries that a whole
+block gathers), so they are held to exact equality, NaN for NaN.  The dense L=3 solve agrees with the CPU run to 1e-9
 rel, the tolerance the CPU tests hold the JAX package to.  The forced-ND
 L=4 solve is held as the CPU tests hold it against JAX: its and c_dot_Dz
 of every t-stage through t=1e4 (c to 1e-9 rel), and the final c_dot_Dz
@@ -30,7 +34,10 @@ from multigridbarrier_tpu_torch.solver import linsolve
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 C_EXACT_L4 = 50.618082533590  # tests/test_ground_truth.py C_EXACT[4]
-HE_SHAPES = [(8, 7, 4, 12), (16, 4, 3, 6), (2048, 7, 4, 12)]
+# the last four: one element, element counts that are no multiple of the
+# elements per CTA, and a C that takes the kernel's generic instantiation
+HE_SHAPES = [(8, 7, 4, 12), (16, 4, 3, 6), (2048, 7, 4, 12), (1, 7, 4, 12), (37, 7, 4, 12),
+             (2051, 7, 4, 12), (5, 3, 2, 7)]
 
 
 @pytest.fixture
@@ -59,6 +66,51 @@ def test_he_assemble_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert ck.LAUNCHES["he_assemble"] == n0 + 1
     assert _rel(out, ck.he_assemble_plain(P, W)) <= TOL[dtype]
+    assert torch.equal(ck.HePlan(P)(W), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", HE_SHAPES)
+def test_he_assemble_weighted_kernel_matches_product(cuda, shape, dtype):
+    """W = F2 * w formed inside the kernel gives the bits of he_assemble on
+    the product formed by PyTorch, from F2 in both block orders."""
+    nelem, nq, k, C = shape
+    rng = np.random.default_rng(1)
+    P = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
+    F2 = torch.tensor(rng.standard_normal((nelem * nq, k, k)), dtype=dtype, device=cuda)
+    w = torch.tensor(rng.uniform(0.1, 2.0, nelem * nq), dtype=dtype, device=cuda)
+    plan = ck.HePlan(P, w)
+    want = ck.he_assemble(P, (F2 * w[:, None, None]).reshape(nelem, nq, k, k))
+    F2t = F2.transpose(1, 2).contiguous().transpose(1, 2)  # same values, (l, j) in memory
+    assert not F2t.is_contiguous() or k == 1
+    n0 = ck.LAUNCHES["he_assemble"]
+    got = (plan.weighted(F2), plan.weighted(F2t), ck.he_assemble_weighted(P, F2, w))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["he_assemble"] == n0 + 3
+    assert all(torch.equal(g, want) for g in got)
+    assert _rel(want, ck.he_assemble_weighted_plain(P, F2, w)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_he_assemble_nan_stays_in_its_element(cuda, dtype):
+    """A NaN in W reaches every entry of its element's He and no other
+    element's, whatever block of elements a CTA stages together."""
+    shape = (40, 7, 4, 12)
+    rng = np.random.default_rng(2)
+    P = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
+    F2 = torch.tensor(rng.standard_normal((40 * 7, 4, 4)), dtype=dtype, device=cuda)
+    w = torch.ones(40 * 7, dtype=dtype, device=cuda)
+    clean = ck.HePlan(P, w).weighted(F2)
+    for e in (0, 14, 15, 39):
+        bad = F2.clone()
+        bad[e * 7 + 3, 1, 2] = float("nan")
+        for out in (ck.HePlan(P, w).weighted(bad), ck.he_assemble(P, bad.reshape(40, 7, 4, 4))):
+            torch.cuda.synchronize()
+            assert bool(out[e].isnan().all())
+            keep = torch.arange(40, device=cuda) != e
+            assert torch.equal(out[keep], clean[keep])
 
 
 @pytest.mark.cuda
@@ -79,6 +131,51 @@ def test_hvp_kernels_match_plain(cuda, level, dtype):
     assert _rel(flat, flat_ref) <= TOL[dtype]
     assert _rel(out, out_ref) <= TOL[dtype]
     assert torch.all(out[m] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_table_plan_and_fused_hvp_match(cuda, level, dtype):
+    """On the fem2d L=4 bases (m = 1, 9, 49, 225; table widths from 6 to
+    hundreds): table_sum in both layouts, through the wrappers and the
+    plan, equals its plain version exactly (sentinel entries, NaN sources
+    and the pad row included), and the fused hvp equals kernel B followed
+    by kernel C exactly and its plain version to the tolerance."""
+    basis = mt.fem2d(L=4, backend=mt.backend_cuda()).bases["dirichlet"][level]
+    m, nl, nelem, tbl = basis.m, basis.nl, basis.nelem, basis.scatter_idx
+    plan = basis.table_plan
+    rng = np.random.default_rng(10 + level)
+    for nf in (1, 2, 3):
+        em = torch.tensor(rng.standard_normal((nelem, nf * nl)), dtype=dtype, device=cuda)
+        em[rng.integers(0, nelem), rng.integers(0, nf * nl)] = float("nan")
+        flat = em.reshape(nelem, nf, nl).permute(0, 2, 1).reshape(-1, nf).contiguous()
+        ref = ck.table_sum_plain(flat, tbl, m)
+        n0 = ck.LAUNCHES["table_sum"]
+        outs = (ck.table_sum(flat, tbl, m), plan(flat))
+        outs_em = (ck.table_sum_em(em, tbl, m, nl), plan.em(em))
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["table_sum"] == n0 + 4
+        for out in outs:
+            assert torch.equal(out.nan_to_num(nan=7.0), ref.nan_to_num(nan=7.0))
+        for out in outs_em:
+            assert out.is_contiguous() and tuple(out.shape) == (nf, m + 1)
+            assert torch.equal(out.nan_to_num(nan=7.0), ref.T.nan_to_num(nan=7.0))
+        assert torch.equal(ck.table_sum_em_plain(em, tbl, m, nl).nan_to_num(nan=7.0),
+                           ref.T.nan_to_num(nan=7.0))
+        C = nf * nl
+        He = torch.tensor(rng.standard_normal((nelem, C, C)), dtype=dtype, device=cuda)
+        vp = torch.tensor(rng.standard_normal((nf, m + 1)), dtype=dtype, device=cuda)
+        vp[:, m] = 0.0
+        two = ck.table_sum(ck.element_matvec(He, basis.idx, vp), tbl, m).T
+        n0 = ck.LAUNCHES["hvp"]
+        fused = (ck.hvp(He, basis.idx, tbl, vp, m), plan.hvp(He, vp))
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["hvp"] == n0 + 2
+        for out in fused:
+            assert out.is_contiguous() and torch.equal(out, two)
+            assert _rel(out, ck.hvp_plain(He, basis.idx, tbl, vp, m)) <= TOL[dtype]
+            assert torch.all(out[:, m] == 0)
 
 
 @pytest.mark.cuda
@@ -236,6 +333,37 @@ def test_plans_replay_from_a_cuda_graph(cuda):
 
 
 @pytest.mark.cuda
+def test_he_table_and_hvp_plans_replay_from_a_cuda_graph(cuda):
+    """The weighted he_assemble, the element-major table sum and the fused
+    hvp launch on the capturing stream without a host sync: replayed on
+    refilled inputs they give the eager results bit for bit."""
+    basis = mt.fem2d(L=4, backend=mt.backend_cuda()).bases["dirichlet"][-1]
+    nelem, nl, nq, m = basis.nelem, basis.nl, basis.nq, basis.m
+    rng = np.random.default_rng(11)
+    fill = lambda *shape: torch.tensor(rng.standard_normal(shape), device=cuda)  # noqa: E731
+    P, w = fill(nelem, nq, 4, 2 * nl), fill(nelem * nq).abs()
+    he, tab = ck.HePlan(P, w), basis.table_plan
+    F2, gf, vp = fill(nelem * nq, 4, 4), fill(nelem, 2 * nl), fill(2, m + 1)
+    tab.hvp(he.weighted(F2), vp), tab.em(gf)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_he = he.weighted(F2)
+        g_gv = tab.em(gf)
+        g_hv = tab.hvp(g_he, vp)
+    for _ in range(2):
+        fresh = fill(nelem * nq, 4, 4), fill(nelem, 2 * nl), fill(2, m + 1)
+        for t, new in zip((F2, gf, vp), fresh):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_he = ck.he_assemble_weighted(P, fresh[0], w)
+        assert torch.equal(g_he, want_he)
+        assert torch.equal(g_gv, ck.table_sum_em(fresh[1], basis.scatter_idx, m, nl))
+        assert torch.equal(g_hv, ck.hvp(want_he, basis.idx, basis.scatter_idx, fresh[2], m))
+
+
+@pytest.mark.cuda
 def test_assembly_is_deterministic(cuda):
     """The He -> vals sum and the dense matrix placed from it are the same
     bit for bit in two calls (no atomics)."""
@@ -268,8 +396,7 @@ def test_fem2d_L4_forced_nd_on_cuda_matches_cpu(cuda):
     s_cpu = mt.fem2d_solve(L=4, p=1.0, backend=mt.backend_cpu(dense_threshold=256))
     ck.reset_launch_counts()
     s_gpu = mt.fem2d_solve(L=4, p=1.0, backend=mt.backend_cuda(dense_threshold=256))
-    path = ("he_assemble", "element_matvec", "table_sum", "segment_sum", "segment_add_",
-            "row_gather")
+    path = ("he_assemble", "hvp", "table_sum", "segment_sum", "segment_add_", "row_gather")
     assert all(ck.LAUNCHES[k] > 0 for k in path), ck.LAUNCHES
     assert bool(torch.isfinite(s_gpu.z).all())
     its_cpu, c_cpu = _stages(s_cpu, 1e4)
@@ -286,8 +413,9 @@ def test_fem2d_L3_solve_on_cuda_matches_cpu(cuda):
     s_cpu = mt.fem2d_solve(L=3, p=1.0, backend=mt.backend_cpu())
     ck.reset_launch_counts()
     s_gpu = mt.fem2d_solve(L=3, p=1.0)
-    path = ("he_assemble", "element_matvec", "table_sum", "segment_sum")
+    path = ("he_assemble", "hvp", "table_sum", "segment_sum")
     assert all(ck.LAUNCHES[k] > 0 for k in path), ck.LAUNCHES
+    assert ck.LAUNCHES["element_matvec"] == 0
     assert s_gpu.z.device.type == "cuda" and bool(torch.isfinite(s_gpu.z).all())
     c_cpu, c_gpu = s_cpu.SOL_main.c_dot_Dz[-1], s_gpu.SOL_main.c_dot_Dz[-1]
     assert abs(c_gpu - c_cpu) <= 1e-9 * abs(c_cpu)

@@ -155,6 +155,27 @@ def test_fem2d_L4_solve_matches_exact_objective():
     assert st.SOL_main.its[:-1].tolist() == sj.SOL_main.its[:-1].tolist()
 
 
+# fem2d p=1 on the CPU (one thread) at the default routing: SOL_main.its and
+# the final c_dot_Dz as the port gave them before the Newton step went through
+# HePlan / TablePlan / the fused hvp.  The plain versions behind those do the
+# same operations in the same order, so the iteration counts are held equal
+# and c_dot_Dz to 1e-12 rel (a last-bit difference of the objective would
+# show as ~1e-16; the late stages' iteration counts move with the last bit).
+_CPU_PINS = {
+    3: ([5, 9, 46], 94.24788561813587),
+    4: ([6, 12, 7, 152], 50.61808231764134),
+    5: ([7, 7, 8, 5, 116], 27.36070253162774),
+}
+
+
+@pytest.mark.parametrize("L", sorted(_CPU_PINS))
+def test_fem2d_cpu_solve_repeats_pinned_its_and_objective(L):
+    its, c = _CPU_PINS[L]
+    sol = mt.amgb(mt.fem2d(L=L, backend=mt.backend_cpu()), p=1.0)
+    assert sol.SOL_main.its.tolist() == its
+    assert abs(float(sol.SOL_main.c_dot_Dz[-1]) - c) <= 1e-12 * c
+
+
 def test_amgb_accepts_numpy_start_point():
     g = mt.fem2d(L=2, backend=mt.backend_cpu())
     s_default = mt.amgb(g, p=1.0)

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's nested-dissection fine level on one CUDA GPU.
 
-    python3 tools/profile_torch_nd.py [--L 7] [--steps 8] [--solve]
+    python3 tools/profile_torch_nd.py [--root DIR] [--L 7] [--steps 8] [--solve]
 
-Builds fem2d(L) on the default backend (the GPU), and runs Newton steps of
+Imports multigridbarrier_tpu_torch from the checkout --root (default: the
+checkout this script lies in; another checkout, unpacked with `git archive`
+into an ignored directory, to hold a parent commit beside a change in one
+run).  Builds fem2d(L) on the default backend (the GPU), and runs Newton steps of
 the finest level (the nested-dissection route at L >= 6) from the default
 start point at t = 0.1, the first barrier parameter of amgb:
 
@@ -16,16 +19,24 @@ start point at t = 0.1, the first barrier parameter of amgb:
      planned launches of kernels C and D (front assembly, sweep gather,
      in-place sweep update; 5 rounds of 200 calls without a synchronize) beside
      their general wrappers and their library yardsticks;
-  4. --steps more steps under torch.profiler (CPU and CUDA activity).
+  4. --steps more steps under torch.profiler (CPU and CUDA activity);
+  5. the device time per call of the Newton step's own planned launches
+     (kernel A's weighted he_assemble, kernel C's element-major table sum,
+     the fused hvp, and kernel B then C for comparison) under
+     torch.profiler, at the fine level and at the largest dense level: the
+     CUDA-event times of chip_smoke.py include the host's launch cost,
+     these do not.  A checkout from before the launch plans HePlan and
+     TablePlan runs what its Newton step ran instead: he_assemble on a
+     given W, table_sum, and element_matvec + table_sum.
 
 It prints the card line, the seconds per step of (2), the times of (3),
 then for (4) the device busy time per step and the idle share of the
 profiled wall (1 - summed kernel time / wall; the port runs on one
 stream, so kernels do not overlap), the CUDA kernels launched per step
 split into the port's own kernels, elementwise kernels, cuBLAS/cuSOLVER
-kernels and the rest, the device time by kernel name (top 25) and by the
-PyTorch operator that launched it (top 20), and the port's own kernel
-launches per step (runtime/cuda_kernels.LAUNCHES).  With --solve it first
+kernels and the rest, the device time by kernel name (top 25, and the
+port's own kernels below them) and by the PyTorch operator that launched
+it (top 20), and the port's own kernel launches per step (runtime/cuda_kernels.LAUNCHES).  With --solve it first
 times one whole fem2d_solve(L) on the same geometry and prints its
 c_dot_Dz, its and wall.  Exits 1 without a CUDA device.
 """
@@ -40,11 +51,8 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import multigridbarrier_tpu_torch as mt  # noqa: E402
-from multigridbarrier_tpu_torch.runtime import cuda_kernels as ck  # noqa: E402
-amgb_mod = importlib.import_module("multigridbarrier_tpu_torch.solver.amgb")
+# the checkout's package, imported in main() once --root is known
+mt = ck = amgb_mod = None
 
 
 def _self_device_us(evt) -> float:
@@ -110,7 +118,7 @@ def _host_us(fn, calls=200, rounds=5) -> float:
 
 LIBRARY_MARKS = ("gemm", "gemv", "trsm", "trsv", "potrf", "getrf", "cublas", "cusolver",
                  "dot_kernel", "trmm", "syrk", "laswp", "cutlass")
-PORT_MARKS = ("he_assemble_kernel", "element_matvec_kernel", "table_sum_kernel",
+PORT_MARKS = ("he_assemble_kernel", "element_matvec_kernel", "hvp_kernel", "table_sum_kernel",
               "segment_sum_kernel", "row_gather_", "take_along_rows_kernel")
 
 
@@ -204,12 +212,75 @@ def parts(ctx, level, z, t):
               f"{_host_us(general):.2f}, {lib_name} {_host_us(lib):.2f}", flush=True)
 
 
+def kernel_device_times(ctx, calls=20):
+    """Device microseconds per call of the Newton step's own launches, by
+    kernel name, from torch.profiler: at the fine level and at the largest
+    level on the dense route."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    nf, k = ctx.spec.nfields, ctx.spec.k
+    dense = max((lvl for lvl in range(ctx.levels) if lvl not in ctx._nd_route), default=0)
+    for level in (ctx.levels - 1, dense):
+        basis, P = ctx._bases[level], ctx._P[level]
+        nelem, nl, m = basis.nelem, basis.nl, basis.m
+        F2 = torch.randn(nelem * basis.nq, k, k, dtype=P.dtype, device=P.device)
+        gf = torch.randn(nelem, nf * nl, dtype=P.dtype, device=P.device)
+        vp = torch.randn(nf, m + 1, dtype=P.dtype, device=P.device)
+        if hasattr(ck, "HePlan"):
+            he, tab = ck.HePlan(P, ctx.w), basis.table_plan
+            He = he.weighted(F2)
+            what = ("he_assemble weighted, table_sum element-major, hvp fused, then "
+                    "element_matvec + table_sum")
+
+            def launches():
+                he.weighted(F2)
+                tab.em(gf)
+                tab.hvp(He, vp)
+                tab(ck.element_matvec(He, basis.idx, vp))
+        else:
+            W = (F2 * ctx.w[:, None, None]).reshape(nelem, basis.nq, k, k).contiguous()
+            flat = gf.reshape(nelem, nf, nl).permute(0, 2, 1).reshape(-1, nf).contiguous()
+            He = ck.he_assemble(P, W)
+            what = "he_assemble on a given W, table_sum, then element_matvec + table_sum"
+
+            def launches():
+                ck.he_assemble(P, W)
+                ck.table_sum(flat, basis.scatter_idx, m)
+                ck.table_sum(ck.element_matvec(He, basis.idx, vp), basis.scatter_idx, m)
+
+        launches()
+        torch.cuda.synchronize()
+        by_kernel = {}
+        for _ in range(3):  # a trace can come back without device events: try again
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(calls):
+                    launches()
+                torch.cuda.synchronize()
+            for e in prof.events():
+                if _is_kernel(e):
+                    us, cnt = by_kernel.get(e.name, (0.0, 0))
+                    by_kernel[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+            if by_kernel:
+                break
+        print(f"device time per call at level {level} (nelem={nelem}, m={m}, table width "
+              f"{basis.scatter_idx.shape[1]}; {what}; {calls} rounds):")
+        for name, (us, cnt) in sorted(by_kernel.items()):
+            print(f"  {us / cnt:9.3f} us  {cnt:4d} calls  {name[:100]}")
+        if not by_kernel:
+            print("  not measured: the profiler returned no device events")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--L", type=int, default=7)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--solve", action="store_true")
     args = ap.parse_args()
+    global mt, ck, amgb_mod
+    sys.path.insert(0, os.path.abspath(args.root))
+    mt = importlib.import_module("multigridbarrier_tpu_torch")
+    ck = importlib.import_module("multigridbarrier_tpu_torch.runtime.cuda_kernels")
+    amgb_mod = importlib.import_module("multigridbarrier_tpu_torch.solver.amgb")
     if not torch.cuda.is_available():
         print("profile_torch_nd: no CUDA device is available", file=sys.stderr)
         return 1
@@ -218,7 +289,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} package "
+          f"{os.path.dirname(mt.__file__)}", flush=True)
     ck.load()
 
     g = mt.fem2d(L=args.L)
@@ -292,7 +364,9 @@ def main() -> int:
 
     total = busy_us or 1.0
     print(f"device time by kernel (per step; total {busy_us / 1e3 / n:.3f} ms):")
-    for name, (us, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]:
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    shown = ranked[:25] + [kv for kv in ranked[25:] if _kind(kv[0]) == "port"]
+    for name, (us, cnt) in shown:  # the top 25, then the port's kernels below them
         print(f"  {100 * us / total:6.2f}%  {us / 1e3 / n:9.4f} ms  {cnt / n:8.1f} calls  {name[:90]}")
     # the same time by the PyTorch operator that launched it (the port's own
     # kernels are launched through ctypes, outside any operator, so they
@@ -304,6 +378,7 @@ def main() -> int:
         us = _self_device_us(e)
         print(f"  {100 * us / total:6.2f}%  {us / 1e3 / n:9.4f} ms  "
               f"{e.count / n:8.1f} calls  {e.key[:90]}")
+    kernel_device_times(ctx)
     print(f"card: {card}")
     return 0
 
