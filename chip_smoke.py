@@ -7,7 +7,7 @@ Phases, one printed line each (or a few):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
      the nvcc build of the hand-written kernels (csrc/*.cu, sm_90a, one
      nvcc per source, all started together) into build/kernels/, with its
-     time and ptxas resource lines, and kernel A's elements, threads and
+     time and ptxas resource lines, and the narrow kernel A's elements, threads and
      shared memory per CTA at the L=7 fine shape;
   2. each kernel against its plain PyTorch version on the card, float64
      and float32 (TF32 off), at the main-path shapes of fem2d L=6 and L=7
@@ -36,7 +36,15 @@ Phases, one printed line each (or a few):
      element-major table sum and one fused hvp, are recorded into CUDA
      graphs and replayed twice on refilled inputs, and must equal the
      eager results exactly (the kernels launch on the capturing stream
-     with no host sync);
+     with no host sync).
+     Kernel A's wide form (he_assemble_wide: hexahedra, three or more
+     fields) runs both entries at (64,64,5,128) and (512,64,5,128) (the 3D
+     problem at L=3 and L=4), (64,64,6,192) and (8,64,7,256)
+     (parabolic_solve on it and its phase 1) and (8,27,5,54) (Q2
+     hexahedra) against the plain version within the same tolerances, and
+     at (8192,7,4,12) and (64,8,5,16), which both kernels take, exactly
+     against the narrow kernel; the fused hvp at every level of fem3d L=3
+     k=3 (nl = 8, 27, 64) exactly against kernel B followed by kernel C;
   3. fem2d_solve(L=5, p=1.0) on the default backend: every level dense;
      c_dot_Dz within 5e-7 rel of 27.360702531510;
   4. fem2d L=6 with dense_threshold=1<<30, a warm-up run and a timed run:
@@ -48,14 +56,37 @@ Phases, one printed line each (or a few):
   6. fem2d_solve(L=7, p=1.0) on the default backend (two ND levels):
      c_dot_Dz inside FLOOR_BAND[7] = (9.415747, 9.415769); prints the
      symbolic-build seconds, the solve wall, its, peak device memory and
-     the kernel launches.
+     the kernel launches;
+  7. fem3d_solve(L=3, k=3, p=1.0) on the default backend, twice in one
+     process (64 Q3 hexahedra, 2,662 unknowns on the fine level, which
+     takes the nested-dissection route): the two runs give identical its
+     and c_dot_Dz, ||grad u|| <= s + 1e-5 at every point, and c_dot_Dz
+     within 1e-5 rel of the same problem solved with dense_threshold=1<<30
+     in the same run; the wide kernel A must have launched and the narrow
+     one must not;
+  8. fem3d L=2 k=3 with dense_threshold=64: c_dot_Dz within 1e-5 rel of
+     192.49066199206504 (the JAX package's exact-dense pin);
+  9. parabolic_solve(h=0.5, t1=1.0, p=1.0) on fem3d L=2 k=3 (three fields:
+     the wide kernel at C = 81, every hexahedron touching the boundary), on
+     fem3d L=3 k=3 (the wide kernel at (64, 6, 192), nested dissection on
+     the fine level) and on fem1d L=6: ts = [0, 0.5, 1], finite snapshots
+     of shape (n, 3), the fine element shape as expected;
+ 10. fem1d_solve(L=8) at p=1.0 and p=2.0: finite, the path followed to t = 1/tol;
+ 11. the obstacle problem of tests/test_obstacle.py at fem2d L=3, whose
+     start is infeasible: the feasibility phase runs
+     (SOL_feasibility.its.sum() > 0), then the main phase; the obstacle
+     holds to 1e-6 and is active, and c_dot_Dz is within 5e-7 rel of the
+     JAX package's CPU run of the same problem, 100.47994191584185.  (L=3
+     is the largest L at which the JAX package solves this problem on the
+     CPU: at L=4 both packages grind past maxit.)
 In every solve phase the launch counters are reset just before the solve
 and each kernel of that route must have launched (he_assemble, hvp,
 table_sum and segment_sum on the dense route; also segment_add_ and
 row_gather where a level takes nested dissection), and element_matvec,
 which the fused hvp absorbed, must not.  Then the card line
-again, a JSON line with the per-kernel results (launches from phase 6),
-and last the JSON status line.  Any failure raises and exits non-zero;
+again, a JSON line with the per-kernel results (launches from phase 6;
+he_assemble_wide's from the first run of phase 7), and last the JSON
+status line.  Any failure raises and exits non-zero;
 with no CUDA device it exits 1 before printing any result.
 """
 
@@ -77,8 +108,11 @@ C_EXACT = {5: 27.360702531510, 6: 15.4183231432}
 FLOOR_BAND_7 = (9.415747, 9.415769)  # tests/test_ground_truth.py FLOOR_BAND[7]
 TOL = {"float64": 1e-12, "float32": 1e-5}
 EXACT = ("table_sum", "segment_sum", "segment_add_", "row_gather", "take_along_rows")
+C_FEM3D_L2K3 = 192.49066199206504  # tests/test_fem3d.py: exact-dense direct run
+C_OBSTACLE_L3 = 100.47994191584185  # the JAX package on the CPU, obstacle problem, fem2d L=3
 REPLACES = {
     "he_assemble": "multigridbarrier_tpu/runtime/pallas_kernels.py:56",
+    "he_assemble_wide": "multigridbarrier_tpu/runtime/pallas_kernels.py:56",
     "element_matvec": "tools/probe_pallas_gather.py:196",
     "hvp": "tools/probe_pallas_gather.py:196",
     "table_sum": "tools/probe_pallas_gather.py:124",
@@ -89,6 +123,7 @@ REPLACES = {
 }
 SOURCE = {
     "he_assemble": "he_assemble.cu",
+    "he_assemble_wide": "he_assemble_wide.cu",
     "element_matvec": "element_matvec.cu",
     "hvp": "hvp.cu",
     "table_sum": "table_sum.cu",
@@ -99,6 +134,9 @@ SOURCE = {
 }
 DENSE_PATH = ("he_assemble", "hvp", "table_sum", "segment_sum")
 ND_PATH = DENSE_PATH + ("segment_add_", "row_gather")
+# the same routes for wide elements: the wide kernel A in place of the narrow
+WIDE_DENSE_PATH = ("he_assemble_wide",) + DENSE_PATH[1:]
+WIDE_ND_PATH = ("he_assemble_wide",) + ND_PATH[1:]
 # Roofline of one H100 SXM: 3.35 TB/s HBM3; 67 TFLOP/s for float32 outside
 # the tensor cores and for float64 (its tensor-core peak, the higher of the
 # data sheet's two float64 rates, so the bound is the least time).
@@ -161,8 +199,9 @@ class Case:
     results must equal the kernel's bit for bit {label: closure}."""
 
     def __init__(self, name, shape, kernel, plain, library, nbytes_, flops, dtype,
-                 planned=None, timed=None, timed_planned=None, extra=None, exact=None):
-        self.name, self.shape, self.dtype = name, shape, dtype
+                 planned=None, timed=None, timed_planned=None, extra=None, exact=None,
+                 host=True):
+        self.name, self.shape, self.dtype, self.host = name, shape, dtype, host
         self.kernel, self.plain, self.library = kernel, plain, library
         self.bytes, self.flops = nbytes_, flops
         self.planned, self.extra, self.exact = planned, extra or {}, exact or {}
@@ -175,11 +214,15 @@ class Case:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def he_cases(shape, dtype, dev, rng):
+def he_cases(shape, dtype, dev, rng, both=False):
     """Kernel A at one shape, two cases: the weighted entry (what a Newton
     step launches: W = F2 * w formed in the kernel) and the entry that is
     given W.  Each is held to its plain version (einsums) within the
-    tolerance, and exactly to the same kernel's other entries."""
+    tolerance, and exactly to the same kernel's other entries.  HePlan
+    picks the narrow or the wide kernel by the shape, and the case carries
+    that kernel's name; with `both` (a shape both take) the narrow kernel's
+    results must also equal the wide kernel's bit for bit.  The wide cases
+    skip the host-cost loops: they are not launch-bound."""
     ne, q, k, c = shape
     P = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
     F2 = rng.standard_normal((ne * q, k, k))
@@ -189,16 +232,22 @@ def he_cases(shape, dtype, dev, rng):
     w = torch.tensor(rng.uniform(0.1, 2.0, ne * q), dtype=dtype, device=dev)
     W = (F2 * w[:, None, None]).reshape(ne, q, k, k)
     plan = ck.HePlan(P, w)
+    name = "he_assemble" if plan.kernel == "narrow" else "he_assemble_wide"
+    wide = ck.HePlan(P, w, kernel="wide") if both else None
     out_bytes = ne * c * c * P.element_size()
     flops = 2 * ne * q * k * c * (k + c)
     given = Case(
-        "he_assemble", shape,
+        name, shape,
         lambda: ck.he_assemble(P, W), lambda: ck.he_assemble_plain(P, W),
         lambda: torch.einsum("eqjc,eqjl,eqld->ecd", P, W, P),
         nbytes(P, W) + out_bytes, flops, dtype, planned=lambda: plan(W),
+        exact={"the wide kernel": lambda: wide(W)} if both else None,
+        host=plan.kernel == "narrow",
     )
+    exact_w = {"the wide kernel": lambda: wide.weighted(F2),
+               "the wide kernel, F2 with transposed blocks": lambda: wide.weighted(F2t)}
     weighted = Case(
-        "he_assemble", f"{shape} weighted",
+        name, f"{shape} weighted",
         lambda: ck.he_assemble_weighted(P, F2, w),
         lambda: ck.he_assemble_weighted_plain(P, F2, w),
         lambda: torch.einsum("eqjc,eqjl,eqld->ecd", P,
@@ -206,9 +255,11 @@ def he_cases(shape, dtype, dev, rng):
         nbytes(P, F2, w) + out_bytes, flops + ne * q * k * k, dtype,
         planned=lambda: plan.weighted(F2),
         exact={"he_assemble on the product F2 * w": lambda: ck.he_assemble(P, W),
-               "F2 with transposed blocks": lambda: plan.weighted(F2t)},
+               "F2 with transposed blocks": lambda: plan.weighted(F2t),
+               **(exact_w if both else {})},
         extra={"F2 * w, contiguous, then he_assemble (three launches)": lambda: plan(
             (F2t * w[:, None, None]).reshape(ne, q, k, k).contiguous())},
+        host=plan.kernel == "narrow",
     )
     return [weighted, given]
 
@@ -365,7 +416,7 @@ def nd_fine_symbolic(geometry):
     return sym, time.perf_counter() - t0
 
 
-def kernel_cases(g6, g7, sym7, dtype, rng):
+def kernel_cases(g6, g7, sym7, g3d, dtype, rng):
     """Every kernel at the shapes the main paths give it; the first case of
     each kernel in float64 is the one the JSON line reports."""
     dev = g7.x.device
@@ -374,16 +425,27 @@ def kernel_cases(g6, g7, sym7, dtype, rng):
     f6 = g6.bases["dirichlet"][-1]
     nl = f7.nl
     cases = [
-        *he_cases((f7.nelem, f7.nq, 4, 2 * nl), dtype, dev, rng),
+        *he_cases((f7.nelem, f7.nq, 4, 2 * nl), dtype, dev, rng, both=True),
         *he_cases((f6.nelem, f6.nq, 4, 2 * nl), dtype, dev, rng),
         *he_cases((8, 7, 4, 12), dtype, dev, rng),
         *he_cases((16, 4, 3, 6), dtype, dev, rng),
+        *he_cases((64, 8, 5, 16), dtype, dev, rng, both=True),
+        # the wide kernel: the 3D problem at L=3 (first: the main-path shape)
+        # and L=4, parabolic_solve on it and its phase 1, Q2 hexahedra
+        *he_cases((64, 64, 5, 128), dtype, dev, rng),
+        *he_cases((512, 64, 5, 128), dtype, dev, rng),
+        *he_cases((64, 64, 6, 192), dtype, dev, rng),
+        *he_cases((8, 64, 7, 256), dtype, dev, rng),
+        *he_cases((8, 27, 5, 54), dtype, dev, rng),
         matvec_case(d4, dtype, dev, rng),
         matvec_case(f6, dtype, dev, rng),
         # the fused hvp: L=7's largest dense level first (what an L=7 solve
         # launches most), then every other level of L=7
         *(hvp_case(lvl, g7.bases["dirichlet"][lvl], dtype, dev, rng)
           for lvl in (4, 6, 5, 3, 2, 1, 0)),
+        # and at every level of fem3d L=3 k=3 (nl = 64, 27, 8), fine level first
+        *(hvp_case(f"fem3d {lvl}", g3d.bases["dirichlet"][lvl], dtype, dev, rng)
+          for lvl in (2, 1, 0)),
         *table_cases(f7, dtype, dev, rng),
         *table_cases(g6.bases["dirichlet"][2], dtype, dev, rng),
     ]
@@ -468,13 +530,13 @@ def same(out, ref, tol, expect):
     return ok, err, rel
 
 
-def check_kernels(g6, g7, sym7):
+def check_kernels(g6, g7, sym7, g3d):
     """Phase 2: every kernel against its plain version; returns the JSON
     fields of each kernel's first float64 case."""
     results = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for case in kernel_cases(g6, g7, sym7, dtype, np.random.default_rng(0)):
+        for case in kernel_cases(g6, g7, sym7, g3d, dtype, np.random.default_rng(0)):
             ref = case.plain()
             tol = 0.0 if case.name in EXACT else TOL[dname]
             ok, err, rel = same(case.kernel(), ref, tol, case.expect)
@@ -496,7 +558,10 @@ def check_kernels(g6, g7, sym7):
             )
             fields = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
-            if case.planned:
+            if case.planned and not case.host:
+                fields.update(planned_ms=median_ms(case.timed_planned))
+                line += f" planned_ms={fields['planned_ms']:.4f}"
+            elif case.planned:
                 fields.update(
                     planned_ms=median_ms(case.timed_planned), host_us=host_us(case.timed),
                     planned_host_us=host_us(case.timed_planned),
@@ -507,7 +572,8 @@ def check_kernels(g6, g7, sym7):
                 if case.library:
                     line += f" library_host_us={fields['library_host_us']:.2f}"
             for label, fn in case.extra.items():
-                line += f" [{label}: ms={median_ms(fn):.4f} host_us={host_us(fn):.2f}]"
+                line += f" [{label}: ms={median_ms(fn):.4f}"
+                line += f" host_us={host_us(fn):.2f}]" if case.host else "]"
             if case.exact:
                 line += f" exact: {', '.join(case.exact)}"
             print(line + (" ok" if ok else " FAIL"), flush=True)
@@ -610,13 +676,15 @@ def check_capture_step(g7, dtype=torch.float64):
           "on refilled inputs equal the eager launches bit for bit", flush=True)
 
 
-def solve(geometry, label):
-    """One amgb solve with the launch counters reset just before it;
-    returns (sol, c_dot_Dz, wall seconds, launches)."""
+def solve(geometry, label, **kw):
+    """One amgb solve (p=1.0 unless kw says otherwise) with the launch
+    counters reset just before it; returns (sol, c_dot_Dz, wall seconds,
+    launches)."""
+    kw.setdefault("p", 1.0)
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     t0 = time.perf_counter()
-    sol = mt.amgb(geometry, p=1.0)
+    sol = mt.amgb(geometry, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
@@ -625,26 +693,184 @@ def solve(geometry, label):
     return sol, float(sol.SOL_main.c_dot_Dz[-1]), wall, launches
 
 
-def check_pin(label, c, L):
-    rel = abs(c - C_EXACT[L]) / C_EXACT[L]
-    if rel > 5e-7:
-        raise RuntimeError(f"{label}: c_dot_Dz={c!r} is {rel:.3e} rel from {C_EXACT[L]}")
+def rel_to(label, c, ref, tol):
+    """|c - ref| / |ref|, which must not exceed tol."""
+    rel = abs(c - ref) / abs(ref)
+    if not rel <= tol:
+        raise RuntimeError(f"{label}: c_dot_Dz={c!r} is {rel:.3e} rel from {ref!r} (tol {tol:g})")
     return rel
 
 
+def check_pin(label, c, L):
+    return rel_to(label, c, C_EXACT[L], 5e-7)
+
+
 def check_launches(label, launches, path):
-    """Every kernel of the path launched, and kernel B, which the fused hvp
-    absorbed, did not."""
+    """Every kernel of the path launched; kernel B, which the fused hvp
+    absorbed, did not; and of kernel A's two forms only the path's."""
     missing = [k for k in path if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"{label}: kernels {missing} never launched: {launches}")
     if launches["element_matvec"]:
         raise RuntimeError(f"{label}: element_matvec launched on the main path: {launches}")
+    other = "he_assemble" if "he_assemble_wide" in path else "he_assemble_wide"
+    if other not in path and launches[other]:
+        raise RuntimeError(f"{label}: {other} launched on a path of the other kernel A: {launches}")
 
 
 def nd_levels(geometry):
-    (ctx,) = geometry.ctx_cache.values()
-    return {lvl: nd.symbolic_s for lvl, nd in sorted(ctx.nd.items())}
+    """{level: symbolic-build seconds} of the levels that took the
+    nested-dissection route, over the geometry's solver contexts."""
+    return {lvl: round(nd.symbolic_s, 3) for ctx in geometry.ctx_cache.values()
+            for lvl, nd in sorted(ctx.nd.items())}
+
+
+def check_cone(label, sol):
+    """||grad u|| <= s + 1e-5 at every quadrature point (the check of
+    tests/test_fem3d.py); returns the largest violation."""
+    g, z = sol.geometry, sol.z
+    du = torch.stack([g.operators[d].matvec(z[:, 0]) for d in ("dx", "dy", "dz")], dim=1)
+    worst = float((torch.linalg.norm(du, dim=1) - z[:, 1]).max())
+    if not worst <= 1e-5:
+        raise RuntimeError(f"{label}: ||grad u|| - s reaches {worst:.3e} > 1e-5")
+    return worst
+
+
+def phase_fem3d():
+    """Phases 7 and 8: the 3D family.  Returns the launches of the first
+    default-backend L=3 run."""
+    t0 = time.perf_counter()
+    g3 = mt.fem3d(L=3, k=3)
+    fine = g3.bases["dirichlet"][-1]
+    print(f"fem3d L=3 k=3 geometry: {g3.discretization.nelem} hexahedra, n={g3.n}, "
+          f"m={[b.m for b in g3.bases['dirichlet']]}, nl={[b.nl for b in g3.bases['dirichlet']]}, "
+          f"fine table width {fine.scatter_idx.shape[1]} in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    runs, first = [], None
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        sol, c, wall, launches = solve(g3, f"fem3d L=3 k=3 run {i + 1}")
+        worst = check_cone(f"fem3d L=3 k=3 run {i + 1}", sol)
+        print(f"solve fem3d L=3 k=3 default run {i + 1}: c_dot_Dz={c!r} "
+              f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} nd_levels={nd_levels(g3)} "
+              f"max(|grad u| - s)={worst:.3e} "
+              f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}",
+              flush=True)
+        check_launches(f"fem3d L=3 k=3 run {i + 1}", launches, WIDE_ND_PATH)
+        if sorted(nd_levels(g3)) != [2]:
+            raise RuntimeError(f"fem3d L=3 k=3: nested dissection on levels {nd_levels(g3)}, "
+                               "expected the fine level only")
+        runs.append((sol.SOL_main.its.tolist(), c))
+        first = first or launches
+    if runs[0] != runs[1]:
+        raise RuntimeError(f"fem3d L=3 k=3: the two runs differ: {runs}")
+    print("fem3d L=3 k=3 default: the two runs repeat bit for bit (its and c_dot_Dz)", flush=True)
+    # the same problem with a dense Cholesky on every level (2,664 unknowns)
+    g3d = mt.fem3d(L=3, k=3, backend=mt.backend_cuda(dense_threshold=1 << 30))
+    sol, c_dense, wall, launches = solve(g3d, "fem3d L=3 k=3 dense")
+    rel = rel_to("fem3d L=3 k=3 default against dense_threshold=1<<30", runs[0][1], c_dense, 1e-5)
+    print(f"solve fem3d L=3 k=3 dense_threshold=1<<30: c_dot_Dz={c_dense!r} "
+          f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} launches={launches}; the default "
+          f"(nested-dissection) run is {rel:.3e} rel from it", flush=True)
+    check_launches("fem3d L=3 k=3 dense", launches, WIDE_DENSE_PATH)
+
+    # phase 8: L=2 k=3, the fine level (250 unknowns) forced onto nested dissection
+    g2 = mt.fem3d(L=2, k=3, backend=mt.backend_cuda(dense_threshold=64))
+    sol, c, wall, launches = solve(g2, "fem3d L=2 k=3 forced ND")
+    rel = rel_to("fem3d L=2 k=3 forced ND", c, C_FEM3D_L2K3, 1e-5)
+    print(f"solve fem3d L=2 k=3 dense_threshold=64: c_dot_Dz={c!r} rel_err={rel:.3e} "
+          f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} nd_levels={nd_levels(g2)} "
+          f"launches={launches}", flush=True)
+    check_launches("fem3d L=2 k=3 forced ND", launches, WIDE_ND_PATH)
+    return first
+
+
+def phase_obstacle(L=3):
+    """Phase 11: the obstacle problem of tests/test_obstacle.py (u above
+    0.5 - 2|x|^2, ||grad u||^2 <= s, cost 3u + s) from its infeasible
+    start u = |x|^2: phase 1, then phase 2."""
+    g = mt.fem2d(L=L)
+    dev, dt = g.x.device, g.x.dtype
+    A = torch.tensor([[-1.0, 0.0, 0.0, 0.0]], dtype=dt, device=dev)
+    cost = torch.tensor([3.0, 0.0, 0.0, 1.0], dtype=dt, device=dev)
+
+    def obstacle(x):
+        return 0.5 - 2.0 * (x[..., 0] ** 2 + x[..., 1] ** 2)
+
+    Q = mt.convex_intersect(
+        mt.convex_Euclidian_power(idx=(1, 2, 3), p=2.0),
+        mt.convex_linear(A=lambda x: A, b=lambda x: (-obstacle(x)).reshape(1)),
+    )
+    sol, c, wall, launches = solve(
+        g, f"obstacle L={L}", D=[("u", "id"), ("u", "dx"), ("u", "dy"), ("s", "id")],
+        f=lambda x: cost, g=lambda x: torch.stack([x[0] ** 2 + x[1] ** 2, torch.full_like(x[0], 100.0)]),
+        Q=Q, tol=1e-7)
+    feas = sol.SOL_feasibility
+    gap = sol.z[:, 0] - obstacle(g.x)
+    lo = float(gap.min())
+    print(f"solve obstacle fem2d L={L} (infeasible start): feasibility its={feas.its.tolist()} "
+          f"ts={feas.ts} main its={sol.SOL_main.its.tolist()} c_dot_Dz={c!r} "
+          f"min(u - obstacle)={lo:.3e} wall_s={wall:.3f} launches={launches}", flush=True)
+    if not feas.its.sum() > 0:
+        raise RuntimeError(f"obstacle L={L}: the feasibility phase did not run")
+    if not -1e-6 < lo < 1e-3:
+        raise RuntimeError(f"obstacle L={L}: min(u - obstacle)={lo:.3e}: violated or not active")
+    if L == 3:
+        rel_to("obstacle L=3 against the JAX package's CPU run", c, C_OBSTACLE_L3, 5e-7)
+    check_launches(f"obstacle L={L}", launches, DENSE_PATH)
+
+
+def phase_parabolic():
+    """Phase 9: parabolic_solve on fem3d L=2 and L=3 k=3 and on fem1d L=6.
+    At L=2 every hexahedron touches the boundary (C = 81); at L=3 the fine
+    level has the interior shape (64, 6, 192) and takes nested dissection."""
+    for label, make, path, shape in (
+        ("fem3d L=2 k=3", lambda: mt.fem3d(L=2, k=3), WIDE_DENSE_PATH, (64, 6, 81)),
+        ("fem3d L=3 k=3", lambda: mt.fem3d(L=3, k=3), WIDE_ND_PATH, (64, 6, 192)),
+        ("fem1d L=6", lambda: mt.fem1d(L=6), DENSE_PATH, (2, 4, 6)),
+    ):
+        g = make()
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol = mt.parabolic_solve(g, h=0.5, t1=1.0, p=1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        ok = sol.ts == [0.0, 0.5, 1.0] and len(sol.u) == 3 and all(
+            tuple(u.shape) == (g.n, 3) and bool(torch.isfinite(u).all()) for u in sol.u)
+        shapes = sorted({tuple(ctx._P[-1].shape[1:]) for ctx in g.ctx_cache.values()})
+        print(f"parabolic_solve {label} h=0.5 t1=1.0 p=1.0: ts={sol.ts} "
+              f"its={[s.SOL_main.its.tolist() for s in sol.sols]} "
+              f"c_dot_Dz={[s.SOL_main.c_dot_Dz[-1] for s in sol.sols]!r} fine (nq, k, C)={shapes} "
+              f"wall_s={wall:.3f} launches={launches}", flush=True)
+        if not ok:
+            raise RuntimeError(f"parabolic_solve {label}: ts={sol.ts}, snapshots "
+                               f"{[tuple(u.shape) for u in sol.u]} not finite of shape ({g.n}, 3)")
+        if shapes != [shape]:
+            raise RuntimeError(f"parabolic_solve {label}: fine element shapes {shapes}, "
+                               f"expected {shape}")
+        check_launches(f"parabolic_solve {label}", launches, path)
+
+
+def phase_fem1d():
+    """Phase 10: fem1d_solve(L=8) at p=1 and p=2."""
+    for p in (1.0, 2.0):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol = mt.fem1d_solve(L=8, p=p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        n = sol.geometry.n
+        print(f"solve fem1d L=8 p={p}: c_dot_Dz={sol.SOL_main.c_dot_Dz[-1]!r} "
+              f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} launches={launches}", flush=True)
+        if not (tuple(sol.z.shape) == (n, 2) and bool(torch.isfinite(sol.z).all())
+                and sol.SOL_main.t_end >= 1e7):
+            raise RuntimeError(f"fem1d L=8 p={p}: not finite of shape ({n}, 2), or the path "
+                               "stopped short of t = 1/tol")
+        check_launches(f"fem1d L=8 p={p}", launches, DENSE_PATH)
 
 
 def main() -> int:
@@ -685,7 +911,12 @@ def main() -> int:
         print(f"he_assemble ({f7.nelem},{f7.nq},4,{2 * f7.nl}) {str(dtype).split('.')[-1]}: "
               f"{cfg['elements_per_cta']} elements per CTA, {cfg['threads']} threads and "
               f"{cfg['smem_bytes']} bytes of shared memory per CTA, {cfg['ctas']} CTAs", flush=True)
-    kernels = check_kernels(g6, g7, sym7)
+    t0 = time.perf_counter()
+    g3d = mt.fem3d(L=3, k=3)
+    print(f"fem3d L=3 k=3 geometry (for the hvp cases): nl="
+          f"{[b.nl for b in g3d.bases['dirichlet']]} in {time.perf_counter() - t0:.2f}s", flush=True)
+    kernels = check_kernels(g6, g7, sym7, g3d)
+    del g3d
     check_capture(sym7)
     check_capture_step(g7)
 
@@ -736,6 +967,14 @@ def main() -> int:
           f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}",
           flush=True)
     check_launches("L=7", launches, ND_PATH)
+    del g6, g6d, g7, sym7
+    torch.cuda.empty_cache()
+
+    # phases 7-11: the 3D family, the time stepper, 1D, an infeasible start
+    launches["he_assemble_wide"] = phase_fem3d()["he_assemble_wide"]
+    phase_parabolic()
+    phase_fem1d()
+    phase_obstacle()
 
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": [

@@ -1,6 +1,7 @@
 """Backend: device/precision/solver policy object (PyTorch port).
 
-The entry points (fem2d, fem2d_solve) use backend_cuda() when they are
+The entry points (fem1d, fem2d, fem3d and their *_solve forms) use
+backend_cuda() when they are
 given no backend; the CPU is used only when the caller passes
 backend_cpu().
 

@@ -19,7 +19,10 @@
 // field-major vector vp (pad slot m is zero) into shared memory.  Then each
 // thread owns one output row of one element and sums its C products in a
 // register.  Every output slot is written by exactly one thread: no atomics,
-// deterministic.
+// deterministic.  Where one element's He block does not fit the 48 KB of
+// shared memory (C = 128 in float64: hexahedra), the CTA takes one element,
+// stages only the gathered coefficients, and each thread walks its He row in
+// device memory, in the same order.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -31,12 +34,13 @@ __global__ void element_matvec_kernel(const T* __restrict__ He,
                                       const int32_t* __restrict__ idx,
                                       const T* __restrict__ vp,
                                       T* __restrict__ out, int64_t nelem,
-                                      int nl, int nf, int64_t mp1, int epb) {
+                                      int nl, int nf, int64_t mp1, int epb,
+                                      int staged) {
   extern __shared__ unsigned char smem_raw[];
   const int C = nf * nl;
   const int cc = C * C;
   T* sH = reinterpret_cast<T*>(smem_raw);
-  T* sv = sH + epb * cc;
+  T* sv = staged ? sH + epb * cc : sH;
 
   const int64_t e0 = static_cast<int64_t>(blockIdx.x) * epb;
   const int64_t left = nelem - e0;
@@ -45,7 +49,9 @@ __global__ void element_matvec_kernel(const T* __restrict__ He,
   const int nth = blockDim.x;
 
   const T* gH = He + e0 * cc;
-  for (int i = tid; i < ne * cc; i += nth) sH[i] = gH[i];
+  if (staged) {
+    for (int i = tid; i < ne * cc; i += nth) sH[i] = gH[i];
+  }
   for (int i = tid; i < ne * C; i += nth) {
     const int es = i / C;
     const int b = i - es * C;
@@ -59,7 +65,7 @@ __global__ void element_matvec_kernel(const T* __restrict__ He,
   for (int i = tid; i < ne * C; i += nth) {
     const int es = i / C;
     const int r = i - es * C;
-    const T* row = sH + es * cc + r * C;
+    const T* row = (staged ? sH : gH) + es * cc + r * C;
     const T* v = sv + es * C;
     T acc = T(0);
     for (int b = 0; b < C; ++b) acc += row[b] * v[b];
@@ -76,11 +82,13 @@ int launch(const void* He, const int32_t* idx, const void* vp, void* out,
            int64_t nelem, int nl, int nf, int64_t mp1, void* stream) {
   if (nelem <= 0) return 0;
   const int C = nf * nl;
-  const size_t per_elem = static_cast<size_t>(C * C + C) * sizeof(T);
+  size_t per_elem = (static_cast<size_t>(C) * C + C) * sizeof(T);
   int epb = 128 / C;
   if (epb < 1) epb = 1;
   while (epb > 1 && epb * per_elem > kSmemLimit) --epb;
-  if (epb * per_elem > kSmemLimit) {
+  const int staged = epb * per_elem <= kSmemLimit;
+  if (!staged) per_elem = static_cast<size_t>(C) * sizeof(T);
+  if (C > 1024 || epb * per_elem > kSmemLimit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = ((epb * C + 31) / 32) * 32;
@@ -89,7 +97,7 @@ int launch(const void* He, const int32_t* idx, const void* vp, void* out,
                              epb * per_elem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(He), idx, static_cast<const T*>(vp),
-      static_cast<T*>(out), nelem, nl, nf, mp1, epb);
+      static_cast<T*>(out), nelem, nl, nf, mp1, epb, staged);
   return static_cast<int>(cudaGetLastError());
 }
 

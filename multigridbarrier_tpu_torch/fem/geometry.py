@@ -4,7 +4,7 @@ fem/geometry.py).
 - ``x``: (n, dim) quadrature-node coordinates
 - ``w``: (n,) quadrature weights
 - ``operators``: differential operators on the broken space ('id', 'dx',
-  'dy'), each an n x n block-diagonal operator
+  'dy', 'dz'), each an n x n block-diagonal operator
 - ``subspaces``: name -> per-level inclusion matrices R_l (n x m_l)
 - ``refine``/``coarsen``: level transfers between broken spaces
 - ``embed``: per-subspace inter-level embeddings E_l with R_{l+1} E_l = R_l
@@ -27,7 +27,7 @@ from ..runtime import BlockDiagOp, Ell, LevelBasis
 class Discretization:
     """Static mesh metadata. `payload` holds builder-specific host arrays."""
 
-    name: str  # 'fem2d'
+    name: str  # 'fem1d' | 'fem2d' | 'fem3d'
     dim: int
     L: int
     nelem: int

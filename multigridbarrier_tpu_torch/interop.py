@@ -6,10 +6,13 @@ geometry_to_arrays(g) flattens a Geometry into a dict of numpy arrays with
 port's Geometry from such a dict.  geometry_to_arrays only reads
 attributes, and both packages' Geometry objects have the same ones, so it
 also flattens a JAX Geometry (its arrays convert with np.asarray): solver
-tests run both packages on bit-identical geometry this way.  The
-discretization payload (host mesh tables) is not carried.
+tests run both packages on bit-identical geometry this way.  Of the
+discretization payload (host mesh tables) the numeric entries are carried
+(fem1d: h, nodes; fem2d: verts, tris; fem3d: k, verts, hexes); fem2d's
+list of per-level mesh objects is not.
 
-Keys: disc/{name,dim,L,nelem,nq}, x, w, op/<name>/{blocks,is_identity},
+Keys: disc/{name,dim,L,nelem,nq}, disc/payload/<key>, x, w,
+op/<name>/{blocks,is_identity},
 sub/<key>/<l>/{cols,vals,shape}, embed/<key>/<l>/..., refine/<l>/...,
 coarsen/<l>/..., basis/<key>/<l>/{idx,rloc,m,scatter_idx,pair_idx}.
 """
@@ -42,6 +45,9 @@ def geometry_to_arrays(g) -> dict:
         "x": _np(g.x),
         "w": _np(g.w),
     }
+    for key, val in d.payload.items():
+        if isinstance(val, (int, float, np.number, np.ndarray)):
+            out[f"disc/payload/{key}"] = np.asarray(val)
     for name, op in g.operators.items():
         out[f"op/{name}/is_identity"] = np.asarray(bool(op.is_identity))
         if not op.is_identity:
@@ -100,6 +106,13 @@ def geometry_from_arrays(arrays: dict, backend: Backend) -> Geometry:
         L=int(arrays["disc/L"]),
         nelem=int(arrays["disc/nelem"]),
         nq=int(arrays["disc/nq"]),
+        payload={
+            key: (val.item() if val.ndim == 0 else val)
+            for key, val in (
+                (k[len("disc/payload/"):], np.asarray(v))
+                for k, v in arrays.items() if k.startswith("disc/payload/")
+            )
+        },
     )
 
     def ell(prefix):

@@ -5,6 +5,9 @@ the gather kernels probed in tools/probe_pallas_gather.py):
 
   A. he_assemble      element Hessians He = P^T W P        csrc/he_assemble.cu
      he_assemble_weighted   the same with W = F2 * w formed in the kernel
+     he_assemble_wide the same function for wide elements  csrc/he_assemble_wide.cu
+                      (C > 32 or nq*k > 64: hexahedra, more than two fields),
+                      both entries; HePlan picks the kernel by shape
   B. element_matvec   per-element He[e] @ v[idx[e]]        csrc/element_matvec.cu
      hvp              gather + element matvec + node sum   csrc/hvp.cu
   C. table_sum        gather-table node sum (no atomics)   csrc/table_sum.cu
@@ -58,8 +61,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-_SOURCES = ("he_assemble.cu", "element_matvec.cu", "hvp.cu", "table_sum.cu",
-            "row_gather.cu")
+_SOURCES = ("he_assemble.cu", "he_assemble_wide.cu", "element_matvec.cu", "hvp.cu",
+            "table_sum.cu", "row_gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -67,6 +70,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "he_assemble": 0,
+    "he_assemble_wide": 0,
     "element_matvec": 0,
     "hvp": 0,
     "table_sum": 0,
@@ -160,12 +164,13 @@ def load():
             lib = ctypes.CDLL(build()[0])
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             for t in ("f32", "f64"):
-                fn = getattr(lib, f"mgb_he_assemble_{t}")
-                fn.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
-                fn.restype = i32
-                fn = getattr(lib, f"mgb_he_assemble_weighted_{t}")
-                fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
-                fn.restype = i32
+                for name in ("he_assemble", "he_assemble_wide"):
+                    fn = getattr(lib, f"mgb_{name}_{t}")
+                    fn.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp]
+                    fn.restype = i32
+                    fn = getattr(lib, f"mgb_{name}_weighted_{t}")
+                    fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+                    fn.restype = i32
                 fn = getattr(lib, f"mgb_element_matvec_{t}")
                 fn.argtypes = [vp, vp, vp, vp, i64, i32, i32, i64, vp]
                 fn.restype = i32
@@ -290,15 +295,22 @@ class HePlan:
     """he_assemble bound to a level's static operands.
 
     P (nelem, nq, k, C) and, for the weighted entry, the quadrature weights
-    w (nelem*nq,) are validated once (device, dtype, contiguity, shape, the
-    kernel's limits) and kept alive; plan(W) = he_assemble(P, W) and
+    w (nelem*nq,) are validated once (device, dtype, contiguity, shape) and
+    kept alive.  Any shape runs: the plan picks the narrow kernel
+    (csrc/he_assemble.cu, one He column per thread) where C <= 32 and
+    nq*k <= 64, and the wide kernel (csrc/he_assemble_wide.cu, He tiled
+    over the threads of several CTAs) otherwise; `kernel` ("narrow" or
+    "wide") overrides the choice, for the checks that hold the two against
+    each other where both apply (they agree bit for bit).  Launches count
+    under LAUNCHES["he_assemble"] or LAUNCHES["he_assemble_wide"].
+    plan(W) = he_assemble(P, W) and
     plan.weighted(F2) = he_assemble_weighted(P, F2, w), with only W or F2
     checked per call.  F2 (nelem*nq, k, k) may hold its (j, l) blocks in
     either order (contiguous, or the transposed view that torch.func's
     hessian returns): the kernel reads both without a copy.  On a CUDA
     device the kernel library is built and the entry points resolved here."""
 
-    def __init__(self, P: torch.Tensor, w=None):
+    def __init__(self, P: torch.Tensor, w=None, kernel=None):
         name = "he_assemble"
         tensors = {"P": P} if w is None else {"P": P, "w": w}
         self.device = _check(name, tensors, ("P",))
@@ -309,15 +321,19 @@ class HePlan:
         if w is not None and tuple(w.shape) != (self.nelem * self.nq,):
             raise ValueError(
                 f"{name}: w shape {tuple(w.shape)} != {(self.nelem * self.nq,)}")
+        narrow_ok = self.C <= 32 and self.nq * self.k <= 64
+        if kernel is None:
+            kernel = "narrow" if narrow_ok else "wide"
+        if kernel not in ("narrow", "wide") or (kernel == "narrow" and not narrow_ok):
+            raise ValueError(
+                f"{name}: kernel={kernel!r} does not take C={self.C}, nq*k={self.nq * self.k} "
+                "(narrow: C <= 32 and nq*k <= 64; wide: any shape)")
+        self.kernel = kernel
+        self._name = "he_assemble" if kernel == "narrow" else "he_assemble_wide"
         self._fn = self._fn_w = None
         if self.device.type == "cuda":
-            if self.C > 32 or self.nq * self.k > 64:
-                raise ValueError(
-                    f"{name}: kernel supports C <= 32 and nq*k <= 64 "
-                    f"(got C={self.C}, nq*k={self.nq * self.k})"
-                )
-            self._fn = _kernel("he_assemble", P.dtype)
-            self._fn_w = _kernel("he_assemble_weighted", P.dtype)
+            self._fn = _kernel(self._name, P.dtype)
+            self._fn_w = _kernel(self._name + "_weighted", P.dtype)
 
     def _operand(self, key, t, shape):
         if t.device != self.device:
@@ -338,7 +354,7 @@ class HePlan:
         if self.device.type == "cpu":
             return he_assemble_plain(self.P, W)
         out = self._out()
-        _launch("he_assemble", self._fn, self.device.index, self.P.data_ptr(),
+        _launch(self._name, self._fn, self.device.index, self.P.data_ptr(),
                 W.data_ptr(), out.data_ptr(), self.nelem, self.nq, self.k, self.C)
         return out
 
@@ -356,7 +372,7 @@ class HePlan:
         if self.device.type == "cpu":
             return he_assemble_weighted_plain(self.P, F2, self.w)
         out = self._out()
-        _launch("he_assemble", self._fn_w, self.device.index, self.P.data_ptr(),
+        _launch(self._name, self._fn_w, self.device.index, self.P.data_ptr(),
                 F2.data_ptr(), self.w.data_ptr(), out.data_ptr(), self.nelem,
                 self.nq, self.k, self.C, transposed)
         return out
@@ -374,13 +390,14 @@ def he_assemble_weighted(P: torch.Tensor, F2: torch.Tensor, w: torch.Tensor) -> 
 
 
 def he_assemble_config(dtype, nelem: int, nq: int, k: int, C: int, weighted: bool = False):
-    """The kernel's launch configuration for a shape on the current CUDA
-    device: elements per CTA, threads per CTA, CTAs, shared memory per CTA."""
+    """The narrow kernel's launch configuration for a shape on the current
+    CUDA device: elements per CTA, threads per CTA, CTAs, shared memory per
+    CTA."""
     out = (ctypes.c_int64 * 4)()
     rc = load().mgb_he_assemble_config(
         torch.empty((), dtype=dtype).element_size(), nelem, nq, k, C, int(weighted), out)
     if rc != 0:
-        raise ValueError(f"he_assemble: the kernel does not take nq={nq}, k={k}, C={C}")
+        raise ValueError(f"he_assemble: the narrow kernel does not take nq={nq}, k={k}, C={C}")
     return dict(zip(("elements_per_cta", "threads", "ctas", "smem_bytes"), out))
 
 
@@ -413,8 +430,8 @@ def element_matvec(He: torch.Tensor, idx: torch.Tensor, vp: torch.Tensor):
         raise ValueError(f"element_matvec: He shape {tuple(He.shape)} != {(nelem, C, C)}")
     if dev.type == "cpu":
         return element_matvec_plain(He, idx, vp)
-    if (C * C + C) * He.element_size() > 48 * 1024:
-        raise ValueError(f"element_matvec: C={C} exceeds the kernel's shared memory")
+    if C > 1024:
+        raise ValueError(f"element_matvec: C={C} exceeds the kernel's 1024 threads per element")
     out = torch.empty((nelem * nl, nf), dtype=He.dtype, device=dev)
     _launch("element_matvec", _kernel("element_matvec", He.dtype), dev.index,
             He.data_ptr(), idx.data_ptr(),

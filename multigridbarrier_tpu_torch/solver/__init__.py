@@ -1,5 +1,6 @@
 from .amgb import AMGBConvergenceFailure, AMGBSOL, PhaseLog, amgb
 from .convex import Convex, convex_Euclidian_power, convex_intersect, convex_linear
+from .parabolic import ParabolicSOL, parabolic_solve
 
 __all__ = [
     "amgb",
@@ -10,4 +11,6 @@ __all__ = [
     "convex_Euclidian_power",
     "convex_intersect",
     "convex_linear",
+    "ParabolicSOL",
+    "parabolic_solve",
 ]

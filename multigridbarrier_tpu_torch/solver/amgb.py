@@ -32,9 +32,17 @@ syncs with the host for the decrement and once per line-search trial, and
 the dense route also for the Cholesky status; the nested-dissection
 factor and solve do not sync.
 
-Ported so far: phase 2 (the start point must be strictly feasible).
-These raise NotImplementedError: an infeasible start (phase 1), mixed
-precision, a custom linear solver and aux= columns.
+amgb runs two phases: when the start point is not strictly feasible, a
+feasibility phase first follows the path of the problem augmented with one
+slack field (barrier = the set's cobarrier, cost = the original cost plus
+M times the slack) until the iterate is strictly inside the set; then the
+main phase.  aux= appends per-row data columns to the coordinates that the
+pointwise callables f, g and the barrier see (the time stepper of
+solver/parabolic.py passes the previous snapshot this way); the
+nested-dissection ordering reads the geometry's coordinates only.
+
+These raise NotImplementedError: mixed precision and a custom linear
+solver.
 """
 
 from __future__ import annotations
@@ -111,6 +119,22 @@ def default_g(dim: int, dtype):
 
 
 _DEFAULT_Q_CACHE: dict = {}
+_CO_BARRIER_CACHE: dict = {}
+
+
+def _co_barrier_for(Qset: Convex, k: int) -> Callable:
+    """Memoized phase-1 barrier wrapper for (Qset, k): the solver contexts
+    are cached by barrier identity, and a fresh closure per amgb call would
+    make every infeasible-start solve build a new context."""
+    key = (Qset, k)
+    fn = _CO_BARRIER_CACHE.get(key)
+    if fn is None:
+
+        def fn(xi, ya, _Q=Qset, _k=k):
+            return _Q.cobarrier(xi, ya[:_k], ya[_k])
+
+        _CO_BARRIER_CACHE[key] = fn
+    return fn
 
 
 def default_Q(dim: int, p) -> Convex:
@@ -176,6 +200,10 @@ class _NDLevel:
     N_CG = 2  # CG trips of the polish (the JAX CPU default MGB_ND_PCG=2)
 
     def __init__(self, basis, nf: int, x: torch.Tensor):
+        """x: the geometry's quadrature-point coordinates (n, dim), never
+        the rows with aux columns appended: the bisection runs over every
+        column it is given, and the elimination order must not change with
+        the data."""
         m = basis.m
         idx = basis.idx.cpu().numpy()
         t0 = time.perf_counter()
@@ -276,6 +304,7 @@ class _SolverCtx:
         max_backtrack: int = 60,
         newton_cap: int = 200,
         newton_patience: Optional[int] = None,
+        x: Optional[torch.Tensor] = None,
     ):
         self.geometry = geometry
         self.spec = spec
@@ -297,7 +326,7 @@ class _SolverCtx:
 
         g = geometry
         self.levels = len(g.bases[subspace])
-        self.x = g.x
+        self.x = g.x if x is None else x  # may carry extra aux columns
         self.w = g.w
         self.ops = g.operators
         self.backend = g.backend
@@ -369,7 +398,7 @@ class _SolverCtx:
         table = self._tables[level]
         if level in self._nd_route:
             if level not in self.nd:
-                self.nd[level] = _NDLevel(basis, nf, x)
+                self.nd[level] = _NDLevel(basis, nf, self.geometry.x)
             dvp = self.nd[level].direction(he_to_vals(He, table), gv)
         else:
             sys_ = LevelSystem(He, idx, m, basis.scatter_idx, table, basis.table_plan)
@@ -482,10 +511,16 @@ def _path_follow(
     maxit: int,
     theta: float,
     final_lam2: float,
+    early_stop: Optional[Callable] = None,
     verbose: bool = False,
     logfile=None,
     phase: str = "main",
 ):
+    """Follow the central path from t0 to t_end at the levels of `ctx`.
+    early_stop(z), if given, is asked after every completed t-stage and
+    ends the path when it returns true (the feasibility phase stops as soon
+    as the iterate is strictly feasible); such a path takes no final
+    polish."""
     L = ctx.levels
     its = np.zeros(L, dtype=np.int64)
     ts, c_dots, log = [], [], []
@@ -582,6 +617,8 @@ def _path_follow(
         use_coarse = False
         retry_stage = 0
 
+        if early_stop is not None and early_stop(z):
+            break
         if t >= t_end * (1 - 1e-12):
             break
         t_done = t
@@ -592,24 +629,26 @@ def _path_follow(
     # Final polish at the finest level, only after a CONVERGED stage: a
     # stage that ended STALLED or LOCKED is already at the arithmetic floor.
     # c_dot_Dz is recorded per t-stage before the polish, so the cap on the
-    # polish changes only how long the floor is ground.
-    if code in (_SolverCtx.STALLED, _SolverCtx.LOCKED):
-        emit(
-            f"[amgb:{phase}] final polish skipped: fine level already "
-            f"at the arithmetic floor (code={code})"
-        )
-    else:
-        emit(f"[amgb:{phase}] final polish t={t:.4e} target lam2={final_lam2:.3e}")
-        cap_save = ctx.newton_cap
-        ctx.newton_cap = min(cap_save, max(4, 2 * ctx.stall_win))
-        try:
-            z_new, nits, code, tr = ctx.run_level(L - 1, z, t, final_lam2)
-        finally:
-            ctx.newton_cap = cap_save
-        emit(f"[amgb:{phase}] polish done its={nits} code={code}")
-        if code != _SolverCtx.DIVERGED:
-            z = z_new
-            its[L - 1] += nits
+    # polish changes only how long the floor is ground.  A path that ends at
+    # early_stop (the feasibility phase) takes no polish.
+    if early_stop is None:
+        if code in (_SolverCtx.STALLED, _SolverCtx.LOCKED):
+            emit(
+                f"[amgb:{phase}] final polish skipped: fine level already "
+                f"at the arithmetic floor (code={code})"
+            )
+        else:
+            emit(f"[amgb:{phase}] final polish t={t:.4e} target lam2={final_lam2:.3e}")
+            cap_save = ctx.newton_cap
+            ctx.newton_cap = min(cap_save, max(4, 2 * ctx.stall_win))
+            try:
+                z_new, nits, code, tr = ctx.run_level(L - 1, z, t, final_lam2)
+            finally:
+                ctx.newton_cap = cap_save
+            emit(f"[amgb:{phase}] polish done its={nits} code={code}")
+            if code != _SolverCtx.DIVERGED:
+                z = z_new
+                its[L - 1] += nits
 
     return z, PhaseLog(
         t_elapsed=time.perf_counter() - t_start,
@@ -629,8 +668,11 @@ def _path_follow(
 
 def _get_ctx(geometry: Geometry, spec, barrier, c, **kw):
     """Geometry-attached _SolverCtx cache, keyed by everything that shapes
-    the context (the environment knobs it reads included); c is refreshed on
-    every call."""
+    the context (the environment knobs it reads included; of x, the rows
+    with aux columns, only the number of columns); c and x are refreshed on
+    every call, so a time stepper that changes its aux data each step
+    keeps one context."""
+    x = kw.get("x")
     key = (
         spec,
         barrier,
@@ -640,6 +682,7 @@ def _get_ctx(geometry: Geometry, spec, barrier, c, **kw):
             os.environ.get(v)
             for v in ("MGB_STALL_WIN", "MGB_NEWTON_PATIENCE", "MGB_LS_ALPHA0")
         ),
+        None if x is None else x.shape[1],
     )
     ctx = geometry.ctx_cache.get(key)
     if ctx is None:
@@ -647,6 +690,7 @@ def _get_ctx(geometry: Geometry, spec, barrier, c, **kw):
         geometry.ctx_cache[key] = ctx
     else:
         ctx.c = c
+        ctx.x = geometry.x if x is None else x
     return ctx
 
 
@@ -676,14 +720,15 @@ def amgb(
 
     Mirrors the reference signature amgb(geometry; p, tol, maxit, verbose,
     logfile, D, f, g); unknown keyword arguments are tolerated and ignored.
-    `z0` may be a tensor or a numpy array of shape (n, nfields).
+    `z0` may be a tensor or a numpy array of shape (n, nfields); `aux`
+    (n, na) is appended to the coordinates, so f, g and the barrier of Q
+    receive rows [coords, aux].  A start point that is not strictly
+    feasible goes through the feasibility phase first (SOL_feasibility).
     """
     if linear_solver is not None:
         raise NotImplementedError("amgb: linear_solver= is not ported yet")
     if mixed:
         raise NotImplementedError("amgb: mixed precision is not ported yet")
-    if aux is not None:
-        raise NotImplementedError("amgb: aux= columns are not ported yet")
     dim = geometry.dim
     dtype, device = geometry.x.dtype, geometry.x.device
     if tol is None:
@@ -700,6 +745,9 @@ def amgb(
         return torch.tensor(v, dtype=dtype, device=device)
 
     x, w = geometry.x, geometry.w
+    if aux is not None:
+        aux = torch.as_tensor(aux, dtype=dtype, device=device)
+        x = torch.cat([x, aux.reshape(x.shape[0], -1)], dim=1)
     c = vmap(lambda xi: as_row(ffun(xi)))(x)
     if z0 is None:
         z0 = vmap(lambda xi: as_row(gfun(xi)))(x)
@@ -712,30 +760,76 @@ def amgb(
             f"g(x) must return {spec.nfields} components, got {z0.shape[1]}"
         )
 
-    # strict interiority <=> finite barrier at the start point
-    y0 = _apply_D(geometry.operators, spec, z0)
-    if not bool(torch.isfinite(torch.sum(w * vmap(Qset.barrier)(x, y0)))):
-        raise NotImplementedError(
-            "amgb: the start point is not strictly feasible, and the "
-            "feasibility phase (phase 1) is not ported yet"
-        )
-    SOL_feasibility = PhaseLog(
-        t_elapsed=0.0,
-        ts=[],
-        its=np.zeros(geometry.levels, dtype=np.int64),
-        c_dot_Dz=[],
-        t_begin=t,
-        t_end=t,
-        converged=True,
-    )
+    t_end = 1.0 / tol
+    log = []
+    ctx_kw = dict(subspace=subspace, newton_cap=newton_cap, x=None if aux is None else x)
 
-    ctx = _get_ctx(geometry, spec, Qset.barrier, c, subspace=subspace,
-                   newton_cap=newton_cap)
-    z, SOL_main, log = _path_follow(
+    # ---- Phase 1: feasibility --------------------------------------------
+    ops = geometry.operators
+    y0 = _apply_D(ops, spec, z0)
+    # strict interiority <=> finite barrier (-log margin); the slack()
+    # convention carries a +1 comfort margin that must not gate the skip: a
+    # converged (near-boundary) iterate passed back in as z0 is feasible
+    if bool(torch.isfinite(torch.sum(w * vmap(Qset.barrier)(x, y0)))):
+        z = z0
+        SOL_feasibility = PhaseLog(
+            t_elapsed=0.0,
+            ts=[],
+            its=np.zeros(geometry.levels, dtype=np.int64),
+            c_dot_Dz=[],
+            t_begin=t,
+            t_end=t,
+            converged=True,
+        )
+    else:
+        # Augmented problem: one more field e with the D row (e, 'id'),
+        # objective sum w * (c . Dz + M * e), barrier = the cobarrier.  The
+        # original cost stays in: with a cost on e alone the objective is
+        # unbounded below (the barrier's -log(s) terms reward sending slack
+        # fields to infinity at no cost) and Newton descends for ever.  M
+        # makes the reduction of infeasibility dominate.
+        spec_aug = DSpec(
+            entries=spec.entries + ((spec.nfields, "id"),),
+            fieldnames=spec.fieldnames + ("_feas_slack",),
+        )
+        M = 10.0 * (1.0 + float(torch.max(torch.abs(c))))
+        c_aug = torch.cat([c, c.new_full((c.shape[0], 1), M)], dim=1)
+        e0 = vmap(Qset.slack)(x, y0)
+        z0_aug = torch.cat([z0, e0[:, None]], dim=1)
+        ctx1 = _get_ctx(geometry, spec_aug, _co_barrier_for(Qset, spec.k), c_aug, **ctx_kw)
+
+        def feasible_now(z_aug):
+            y = _apply_D(ops, spec, z_aug[:, : spec.nfields])
+            sl = vmap(Qset.slack)(x, y)
+            fin = torch.isfinite(torch.sum(vmap(Qset.barrier)(x, y)))
+            return bool(torch.max(sl) < -1e-8) and bool(fin)
+
+        z_aug, SOL_feasibility, log1 = _path_follow(
+            ctx1,
+            z0_aug,
+            t,
+            t_end,
+            kappa,
+            maxit,
+            theta=0.25,
+            final_lam2=tol,
+            early_stop=feasible_now,
+            verbose=verbose,
+            logfile=logfile,
+            phase="feasibility",
+        )
+        log.extend(log1)
+        if not feasible_now(z_aug):
+            raise AMGBConvergenceFailure("amgb: feasibility phase failed")
+        z = z_aug[:, : spec.nfields].contiguous()
+
+    # ---- Phase 2: main ------------------------------------------------------
+    ctx = _get_ctx(geometry, spec, Qset.barrier, c, **ctx_kw)
+    z, SOL_main, log2 = _path_follow(
         ctx,
-        z0,
+        z,
         t,
-        1.0 / tol,
+        t_end,
         kappa,
         maxit,
         theta=0.25,
@@ -744,6 +838,7 @@ def amgb(
         logfile=logfile,
         phase="main",
     )
+    log.extend(log2)
     return AMGBSOL(
         z=z,
         SOL_feasibility=SOL_feasibility,

@@ -14,7 +14,11 @@ against he_assemble on the product F2 * w, the fused hvp against kernel B
 followed by kernel C.  Kernel D is a copy, and C's table_sum (both
 layouts), segment_sum and segment_add_ add in table or list order like
 their plain versions (also the runs of more than 64 entries that a whole
-block gathers), so they are held to exact equality, NaN for NaN.  The dense L=3 solve agrees with the CPU run to 1e-9
+block gathers), so they are held to exact equality, NaN for NaN.  Kernel
+A's wide form (he_assemble_wide, hexahedra and three or more fields) is
+held like the narrow one: to the plain version within the tolerance,
+exactly among its entries, and exactly to the narrow kernel at the shapes
+both take (one summation order).  The dense L=3 solve agrees with the CPU run to 1e-9
 rel, the tolerance the CPU tests hold the JAX package to.  The forced-ND
 L=4 solve is held as the CPU tests hold it against JAX: its and c_dot_Dz
 of every t-stage through t=1e4 (c to 1e-9 rel), and the final c_dot_Dz
@@ -419,3 +423,129 @@ def test_fem2d_L3_solve_on_cuda_matches_cpu(cuda):
     assert s_gpu.z.device.type == "cuda" and bool(torch.isfinite(s_gpu.z).all())
     c_cpu, c_gpu = s_cpu.SOL_main.c_dot_Dz[-1], s_gpu.SOL_main.c_dot_Dz[-1]
     assert abs(c_gpu - c_cpu) <= 1e-9 * abs(c_cpu)
+
+
+# Kernel A for wide elements (csrc/he_assemble_wide.cu): the shapes of the 3D
+# solve (Q3 hexahedra, 2 fields), of parabolic_solve on it (3 fields) and of
+# its phase 1 (4 fields), Q2 hexahedra, a C that is no multiple of the tile,
+# a k that takes the run-time rounds (8 < k), and one element.
+WIDE_SHAPES = [(64, 64, 5, 128), (9, 64, 6, 192), (5, 64, 7, 256), (8, 27, 5, 54),
+               (3, 10, 9, 70), (1, 64, 5, 128), (7, 4, 17, 5)]
+# shapes both kernels take: fem2d's, its phase 1 / parabolic, a generic one
+BOTH_SHAPES = [(2051, 7, 4, 12), (64, 8, 5, 16), (33, 7, 5, 18), (16, 4, 3, 6), (5, 3, 2, 7)]
+
+
+def _he_weighted_inputs(shape, dtype, device, seed):
+    nelem, nq, k, C = shape
+    rng = np.random.default_rng(seed)
+    P = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=device)
+    F2 = rng.standard_normal((nelem * nq, k, k))
+    F2 = torch.tensor(F2 + F2.transpose(0, 2, 1), dtype=dtype, device=device)
+    F2[:, 0, 1] += 0.5  # not symmetric, so the two block orders differ
+    w = torch.tensor(rng.uniform(0.1, 2.0, nelem * nq), dtype=dtype, device=device)
+    return P, F2, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_he_assemble_wide_kernel_matches_plain(cuda, shape, dtype):
+    """Both entries of the wide kernel against the plain version (einsums)
+    to the tolerance, and exactly against each other: W given, W = F2 * w
+    formed in the kernel from F2 in both block orders, wrapper and plan."""
+    nelem, nq, k, C = shape
+    P, F2, w = _he_weighted_inputs(shape, dtype, cuda, 20)
+    W = (F2 * w[:, None, None]).reshape(nelem, nq, k, k)
+    F2t = F2.transpose(1, 2).contiguous().transpose(1, 2)
+    plan = ck.HePlan(P, w)
+    assert plan.kernel == "wide"
+    n0, n_narrow = ck.LAUNCHES["he_assemble_wide"], ck.LAUNCHES["he_assemble"]
+    out = ck.he_assemble(P, W)
+    others = (plan(W), plan.weighted(F2), plan.weighted(F2t), ck.he_assemble_weighted(P, F2, w))
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["he_assemble_wide"] == n0 + 5
+    assert ck.LAUNCHES["he_assemble"] == n_narrow
+    assert _rel(out, ck.he_assemble_plain(P, W)) <= TOL[dtype]
+    assert all(torch.equal(o, out) for o in others)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", BOTH_SHAPES)
+def test_he_assemble_wide_equals_narrow_where_both_apply(cuda, shape, dtype):
+    """The two kernels keep one summation order ((q, j) ascending, l
+    ascending from zero, F2 * w one rounded product): bit for bit equal."""
+    nelem, nq, k, C = shape
+    P, F2, w = _he_weighted_inputs(shape, dtype, cuda, 21)
+    W = (F2 * w[:, None, None]).reshape(nelem, nq, k, k)
+    narrow, wide = ck.HePlan(P, w), ck.HePlan(P, w, kernel="wide")
+    assert narrow.kernel == "narrow" and wide.kernel == "wide"
+    a, b = narrow(W), wide(W)
+    aw, bw = narrow.weighted(F2), wide.weighted(F2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(aw, bw) and torch.equal(a, aw)
+
+
+@pytest.mark.cuda
+def test_he_assemble_wide_nan_stays_in_its_element(cuda):
+    shape = (6, 27, 5, 54)
+    P, F2, w = _he_weighted_inputs(shape, torch.float64, cuda, 22)
+    plan = ck.HePlan(P, w)
+    clean = plan.weighted(F2)
+    for e in (0, 3, 5):
+        bad = F2.clone()
+        bad[e * 27 + 11, 1, 2] = float("nan")
+        out = plan.weighted(bad)
+        torch.cuda.synchronize()
+        assert bool(out[e].isnan().all())
+        keep = torch.arange(6, device=cuda) != e
+        assert torch.equal(out[keep], clean[keep])
+
+
+@pytest.mark.cuda
+def test_fem3d_L2_k3_forced_nd_on_cuda_matches_pin(cuda):
+    """The 3D family on the card through the wide kernel, the fine level on
+    the nested-dissection route: the JAX package's exact-dense pin for this
+    problem (tests/test_fem3d.py) to 1e-5 rel."""
+    ck.reset_launch_counts()
+    sol = mt.fem3d_solve(L=2, k=3, p=1.0, backend=mt.backend_cuda(dense_threshold=64))
+    assert ck.LAUNCHES["he_assemble_wide"] > 0 and ck.LAUNCHES["he_assemble"] == 0
+    assert all(ck.LAUNCHES[k] > 0 for k in ("hvp", "table_sum", "segment_sum", "segment_add_",
+                                            "row_gather")), ck.LAUNCHES
+    c = float(sol.SOL_main.c_dot_Dz[-1])
+    assert abs(c - 192.49066199206504) <= 1e-5 * 192.49066199206504
+    z, g = sol.z, sol.geometry
+    du = torch.stack([g.operators[d].matvec(z[:, 0]) for d in ("dx", "dy", "dz")], dim=1)
+    assert bool((torch.linalg.norm(du, dim=1) <= z[:, 1] + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_parabolic_and_phase1_on_cuda_match_cpu(cuda):
+    """parabolic_solve on fem1d and the obstacle problem (infeasible start)
+    on the card against the CPU run of the same port."""
+    runs = []
+    for backend in (mt.backend_cpu(), mt.backend_cuda()):
+        sol = mt.parabolic_solve(mt.fem1d(L=3, backend=backend), h=0.5, t1=1.0, p=1.0, tol=1e-7)
+        runs.append([u.cpu() for u in sol.u])
+        assert sol.ts == [0.0, 0.5, 1.0]
+    for a, b in zip(*runs):
+        assert float((a - b).abs().max()) < 1e-4
+    sols = []
+    for backend in (mt.backend_cpu(), mt.backend_cuda()):
+        dev = backend.device
+        A = torch.tensor([[-1.0, 0.0, 0.0, 0.0]], dtype=torch.float64, device=dev)
+        Q = mt.convex_intersect(
+            mt.convex_Euclidian_power(idx=(1, 2, 3), p=2.0),
+            mt.convex_linear(A=lambda xx, A=A: A,
+                             b=lambda xx: (-(0.5 - 2.0 * (xx[0] ** 2 + xx[1] ** 2))).reshape(1)))
+        sols.append(mt.amgb(
+            mt.fem2d(L=3, backend=backend),
+            D=[("u", "id"), ("u", "dx"), ("u", "dy"), ("s", "id")],
+            f=lambda xx, dev=dev: torch.tensor([3.0, 0.0, 0.0, 1.0], dtype=torch.float64, device=dev),
+            g=lambda xx: torch.stack([xx[0] ** 2 + xx[1] ** 2, torch.full_like(xx[0], 100.0)]),
+            Q=Q, tol=1e-7))
+    cpu, gpu = sols
+    assert gpu.SOL_feasibility.its.sum() > 0
+    c_cpu, c_gpu = cpu.SOL_main.c_dot_Dz[-1], gpu.SOL_main.c_dot_Dz[-1]
+    assert abs(c_gpu - c_cpu) <= 5e-7 * abs(c_cpu)
+    assert float((gpu.z.cpu() - cpu.z).abs().max()) <= 1e-4

@@ -20,7 +20,9 @@ MODULES = [
     "multigridbarrier_tpu_torch.api",
     "multigridbarrier_tpu_torch.backend",
     "multigridbarrier_tpu_torch.interop",
+    "multigridbarrier_tpu_torch.fem.fem1d",
     "multigridbarrier_tpu_torch.fem.fem2d",
+    "multigridbarrier_tpu_torch.fem.fem3d",
     "multigridbarrier_tpu_torch.fem.geometry",
     "multigridbarrier_tpu_torch.runtime.blockdiag",
     "multigridbarrier_tpu_torch.runtime.cuda_kernels",
@@ -32,6 +34,7 @@ MODULES = [
     "multigridbarrier_tpu_torch.solver.hostsolve",
     "multigridbarrier_tpu_torch.solver.linsolve",
     "multigridbarrier_tpu_torch.solver.ndsolve",
+    "multigridbarrier_tpu_torch.solver.parabolic",
 ]
 
 
@@ -65,6 +68,29 @@ def test_fem2d_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mt.fem2d(L=2)
+
+
+@pytest.mark.parametrize("entry", ["fem1d", "fem3d", "fem1d_solve", "fem3d_solve",
+                                   "parabolic_solve"])
+def test_new_entry_points_default_to_the_card(monkeypatch, entry):
+    """fem1d, fem3d, their *_solve forms and parabolic_solve on a geometry
+    built with no backend argument use backend_cuda(): without a GPU they
+    raise instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "parabolic_solve":
+            mt.parabolic_solve(mt.fem1d(L=2), h=0.5, t1=0.5)
+        elif entry.startswith("fem1d"):
+            getattr(mt, entry)(L=2)
+        else:
+            getattr(mt, entry)(L=1, k=1)
+
+
+def test_public_names():
+    for name in ("fem1d", "fem2d", "fem3d", "fem1d_solve", "fem2d_solve", "fem3d_solve",
+                 "amgb", "parabolic_solve", "ParabolicSOL", "AMGBSOL", "Convex",
+                 "convex_Euclidian_power", "convex_intersect", "convex_linear"):
+        assert name in mt.__all__ and hasattr(mt, name)
 
 
 def test_backend_defaults():

@@ -335,3 +335,60 @@ def test_wrappers_reject_bad_inputs():
         ck.he_assemble(Pt.transpose(2, 3), Wt)
     with pytest.raises(TypeError):
         ck.table_sum(torch.zeros(6, 2, dtype=torch.float64), torch.zeros(3, 2, dtype=torch.int64), 2)
+
+
+# Wide elements (hexahedra): above C = 32 or nq*k = 64 HePlan takes the
+# wide kernel on the card; on the CPU both are the plain version.
+WIDE_SHAPES = [(4, 27, 5, 54), (2, 64, 5, 128)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_he_assemble_wide_shapes_match_jax_einsum_f64(shape):
+    """he_assemble_plain and HePlan (both entries, F2 in both block orders)
+    at the 3D element shapes against the JAX _assemble_He einsum to 1e-12;
+    HePlan no longer refuses C > 32."""
+    nelem, nq, k, C = shape
+    P, F2, w = _weighted_inputs(shape, np.float64)
+    Pt, F2t, wt = torch.from_numpy(P), torch.from_numpy(F2), torch.from_numpy(w)
+    W = (F2t * wt[:, None, None]).reshape(nelem, nq, k, k)
+    plan = ck.HePlan(Pt, wt)
+    assert plan.kernel == "wide" and (plan.C > 32 or plan.nq * plan.k > 64)
+    want = ck.he_assemble_plain(Pt, W)
+    assert tuple(want.shape) == (nelem, C, C)
+    blocks_t = F2t.transpose(1, 2).contiguous().transpose(1, 2)
+    for out in (plan(W), plan.weighted(F2t), plan.weighted(blocks_t), ck.he_assemble(Pt, W),
+                ck.he_assemble_weighted(Pt, F2t, wt)):
+        assert torch.equal(out, want)
+    ctx = types.SimpleNamespace(_use_pallas=False)
+    ref = jam._SolverCtx._assemble_He(ctx, jnp.asarray(P), jnp.asarray(W.numpy()))
+    assert _rel(want.numpy(), np.asarray(ref)) <= 1e-12
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_he_assemble_wide_shapes_match_pallas_interpret_f32(shape):
+    nelem, nq, k, C = shape
+    P, F2, w = _weighted_inputs(shape, np.float32)
+    W = (F2 * w[:, None, None]).reshape(nelem, nq, k, k)
+    ref = assemble_he_pallas(jnp.asarray(P), jnp.asarray(W), block_e=2, interpret=True)
+    plan = ck.HePlan(torch.from_numpy(P), torch.from_numpy(w))
+    for out in (plan.weighted(torch.from_numpy(F2)), plan(torch.from_numpy(W))):
+        assert out.dtype == torch.float32
+        assert _rel(out.numpy(), np.asarray(ref)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,kernel", [
+    ((8, 7, 4, 12), "narrow"), ((8, 7, 5, 18), "narrow"), ((8, 8, 5, 16), "narrow"),
+    ((8, 7, 4, 33), "wide"), ((2, 17, 4, 12), "wide"), ((2, 64, 7, 256), "wide"),
+    ((1, 1, 40, 3), "narrow"), ((1, 2, 40, 3), "wide"),
+])
+def test_he_plan_picks_its_kernel_by_shape(shape, kernel):
+    """Narrow where C <= 32 and nq*k <= 64, wide otherwise; the wide kernel
+    may be asked for at any shape, the narrow one only inside its limits."""
+    P = torch.zeros(shape, dtype=torch.float64)
+    assert ck.HePlan(P).kernel == kernel
+    assert ck.HePlan(P, kernel="wide").kernel == "wide"
+    if kernel == "wide":
+        with pytest.raises(ValueError, match="narrow"):
+            ck.HePlan(P, kernel="narrow")
+    with pytest.raises(ValueError, match="kernel="):
+        ck.HePlan(P, kernel="tensor-core")

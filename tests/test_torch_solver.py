@@ -192,10 +192,6 @@ def test_unported_routes_raise(monkeypatch):
         mt.amgb(g, p=1.0, mixed=True)
     with pytest.raises(NotImplementedError, match="linear_solver"):
         mt.amgb(g, p=1.0, linear_solver=lambda H, b: b)
-    z0 = np.zeros((g.n, 2))
-    z0[:, 1] = -1.0  # s < 0 everywhere: not strictly feasible
-    with pytest.raises(NotImplementedError, match="phase 1"):
-        mt.amgb(g, p=1.0, z0=z0)
     with pytest.raises(NotImplementedError):
         mt.backend_cpu(mesh=object())
     # the entry point's default is the card: without one it raises rather
