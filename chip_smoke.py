@@ -8,7 +8,10 @@ Phases, one printed line each (or a few):
      the nvcc build of the hand-written kernels (csrc/*.cu, sm_90a, one
      nvcc per source, all started together) into build/kernels/, with its
      time and ptxas resource lines, and the narrow kernel A's elements, threads and
-     shared memory per CTA at the L=7 fine shape;
+     shared memory per CTA at the L=7 fine shape; the wide kernel A's He tile,
+     warps, shared memory per CTA, CTAs and MMA shape at (64,64,5,128), and
+     the count of float64 tensor-core (DMMA) instructions in its built code
+     (cuobjdump -sass; none fails the phase);
   2. each kernel against its plain PyTorch version on the card, float64
      and float32 (TF32 off), at the main-path shapes of fem2d L=6 and L=7
      (the nested-dissection gathers and sums of the L=7 fine level among
@@ -43,7 +46,8 @@ Phases, one printed line each (or a few):
      (parabolic_solve on it and its phase 1) and (8,27,5,54) (Q2
      hexahedra) against the plain version within the same tolerances, and
      at (8192,7,4,12) and (64,8,5,16), which both kernels take, exactly
-     against the narrow kernel; the fused hvp at every level of fem3d L=3
+     against the narrow kernel in float32 and against the plain version in
+     float64 (the wide kernel sums on the tensor cores there); the fused hvp at every level of fem3d L=3
      k=3 (nl = 8, 27, 64) exactly against kernel B followed by kernel C;
   3. fem2d_solve(L=5, p=1.0) on the default backend: every level dense;
      c_dot_Dz within 5e-7 rel of 27.360702531510;
@@ -79,6 +83,9 @@ Phases, one printed line each (or a few):
      JAX package's CPU run of the same problem, 100.47994191584185.  (L=3
      is the largest L at which the JAX package solves this problem on the
      CPU: at L=4 both packages grind past maxit.)
+The solve lines of fem2d, fem3d, parabolic_solve on fem3d and the obstacle
+problem print the previous commit's c_dot_Dz and its beside their own, with
+the relative change.
 In every solve phase the launch counters are reset just before the solve
 and each kernel of that route must have launched (he_assemble, hvp,
 table_sum and segment_sum on the dense route; also segment_add_ and
@@ -91,6 +98,7 @@ with no CUDA device it exits 1 before printing any result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -132,6 +140,20 @@ SOURCE = {
     "row_gather": "row_gather.cu",
     "take_along_rows": "row_gather.cu",
 }
+# c_dot_Dz and its of the previous commit's chip run on an NVIDIA H100 80GB
+# HBM3 (700 W), printed beside this run's with the relative change; its
+# None where that run's record kept c_dot_Dz only
+PREVIOUS = {
+    "fem2d L=5": (27.360702531696074, None),
+    "fem2d L=6 dense": (15.418322518741638, None),
+    "fem2d L=6 default": (15.418323143213279, None),
+    "fem2d L=7": (9.415747537960051, None),
+    "fem3d L=3 k=3": (105.65720339962175, [6, 9, 86]),
+    "fem3d L=2 k=3 forced ND": (192.49066199206504, [6, 91]),
+    "obstacle L=3": (100.47994191584186, [12, 6, 44]),
+    "parabolic fem3d L=2 k=3": ([377.9210985908903, 376.29611482559017], [[8, 113], [8, 118]]),
+    "parabolic fem3d L=3 k=3": ([203.60575803814731, 201.7160003677882], [[9, 9, 118], [9, 9, 117]]),
+}
 DENSE_PATH = ("he_assemble", "hvp", "table_sum", "segment_sum")
 ND_PATH = DENSE_PATH + ("segment_add_", "row_gather")
 # the same routes for wide elements: the wide kernel A in place of the narrow
@@ -150,6 +172,33 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def beside_previous(label, c, its):
+    """This run's c_dot_Dz and its beside the previous commit's (PREVIOUS),
+    with the relative change; '' where there is no record."""
+    if label not in PREVIOUS:
+        return ""
+    c0, its0 = PREVIOUS[label]
+    same = c == c0 and (its0 is None or its == its0)
+    return (f" [previous commit: c_dot_Dz={c0!r}" + (f" its={its0}" if its0 else "")
+            + f"; change {abs(c - c0) / abs(c0):.3e} rel{', bit for bit' if same else ''}]")
+
+
+def dmma_count(so):
+    """DMMA (float64 tensor-core) instructions in the wide kernel's
+    functions of the built library, from cuobjdump -sass: {opcode: count}."""
+    cuobjdump = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "he_assemble_wide" in fn and "DMMA" in line:
+            op = next(w for w in line.replace(";", " ").split() if w.startswith("DMMA"))
+            counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def median_ms(fn, reps=30):
@@ -196,15 +245,18 @@ class Case:
     `timed_planned` what the timing loops call where the checked call must
     not be repeated (an in-place update), `extra` more yardsticks to time
     {label: closure}, `exact` other entries of the same kernel whose
-    results must equal the kernel's bit for bit {label: closure}."""
+    results must equal the kernel's bit for bit {label: closure}, `close`
+    other kernels of the same function held to the plain version within
+    the tolerance {label: closure}."""
 
     def __init__(self, name, shape, kernel, plain, library, nbytes_, flops, dtype,
                  planned=None, timed=None, timed_planned=None, extra=None, exact=None,
-                 host=True):
+                 host=True, close=None):
         self.name, self.shape, self.dtype, self.host = name, shape, dtype, host
         self.kernel, self.plain, self.library = kernel, plain, library
         self.bytes, self.flops = nbytes_, flops
         self.planned, self.extra, self.exact = planned, extra or {}, exact or {}
+        self.close = close or {}  # other kernels held to the plain version, within tol
         self.timed, self.timed_planned = timed or kernel, timed_planned or planned
         self.expect = {}  # output row -> value it must hold (NaN: any NaN)
 
@@ -220,9 +272,12 @@ def he_cases(shape, dtype, dev, rng, both=False):
     given W.  Each is held to its plain version (einsums) within the
     tolerance, and exactly to the same kernel's other entries.  HePlan
     picks the narrow or the wide kernel by the shape, and the case carries
-    that kernel's name; with `both` (a shape both take) the narrow kernel's
-    results must also equal the wide kernel's bit for bit.  The wide cases
-    skip the host-cost loops: they are not launch-bound."""
+    that kernel's name; with `both` (a shape both take) the wide kernel
+    runs too: in float32 its results must equal the narrow kernel's bit
+    for bit, in float64 (tensor cores, their own order of the products of
+    an instruction) they are held to the plain version within the
+    tolerance.  The wide cases skip the host-cost loops: they are not
+    launch-bound."""
     ne, q, k, c = shape
     P = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
     F2 = rng.standard_normal((ne * q, k, k))
@@ -234,6 +289,7 @@ def he_cases(shape, dtype, dev, rng, both=False):
     plan = ck.HePlan(P, w)
     name = "he_assemble" if plan.kernel == "narrow" else "he_assemble_wide"
     wide = ck.HePlan(P, w, kernel="wide") if both else None
+    f64 = dtype == torch.float64
     out_bytes = ne * c * c * P.element_size()
     flops = 2 * ne * q * k * c * (k + c)
     given = Case(
@@ -241,11 +297,12 @@ def he_cases(shape, dtype, dev, rng, both=False):
         lambda: ck.he_assemble(P, W), lambda: ck.he_assemble_plain(P, W),
         lambda: torch.einsum("eqjc,eqjl,eqld->ecd", P, W, P),
         nbytes(P, W) + out_bytes, flops, dtype, planned=lambda: plan(W),
-        exact={"the wide kernel": lambda: wide(W)} if both else None,
+        exact={"the wide kernel": lambda: wide(W)} if both and not f64 else None,
+        close={"the wide kernel": lambda: wide(W)} if both and f64 else None,
         host=plan.kernel == "narrow",
     )
-    exact_w = {"the wide kernel": lambda: wide.weighted(F2),
-               "the wide kernel, F2 with transposed blocks": lambda: wide.weighted(F2t)}
+    wide_w = {"the wide kernel": lambda: wide.weighted(F2),
+              "the wide kernel, F2 with transposed blocks": lambda: wide.weighted(F2t)}
     weighted = Case(
         name, f"{shape} weighted",
         lambda: ck.he_assemble_weighted(P, F2, w),
@@ -256,7 +313,8 @@ def he_cases(shape, dtype, dev, rng, both=False):
         planned=lambda: plan.weighted(F2),
         exact={"he_assemble on the product F2 * w": lambda: ck.he_assemble(P, W),
                "F2 with transposed blocks": lambda: plan.weighted(F2t),
-               **(exact_w if both else {})},
+               **(wide_w if both and not f64 else {})},
+        close=wide_w if both and f64 else None,
         extra={"F2 * w, contiguous, then he_assemble (three launches)": lambda: plan(
             (F2t * w[:, None, None]).reshape(ne, q, k, k).contiguous())},
         host=plan.kernel == "narrow",
@@ -544,6 +602,8 @@ def check_kernels(g6, g7, sym7, g3d):
                 ok = ok and same(case.planned(), ref, tol, case.expect)[0]
             wrong = [label for label, fn in case.exact.items()
                      if not same(fn(), case.kernel(), 0.0, {})[0]]
+            wrong += [label for label, fn in case.close.items()
+                      if not same(fn(), ref, tol, case.expect)[0]]
             ok = ok and not wrong
             torch.cuda.synchronize()
             ms = median_ms(case.timed)
@@ -576,11 +636,13 @@ def check_kernels(g6, g7, sym7, g3d):
                 line += f" host_us={host_us(fn):.2f}]" if case.host else "]"
             if case.exact:
                 line += f" exact: {', '.join(case.exact)}"
+            if case.close:
+                line += f" within tol of plain: {', '.join(case.close)}"
             print(line + (" ok" if ok else " FAIL"), flush=True)
             if not ok:
                 raise RuntimeError(
                     f"{case.name} {case.shape} {dname}: kernel disagrees with plain"
-                    + (f"; entries that differ from it: {wrong}" if wrong else ""))
+                    + (f"; entries or kernels that differ: {wrong}" if wrong else ""))
             if dtype == torch.float64 and case.name not in results:
                 results[case.name] = fields
     return results
@@ -754,8 +816,8 @@ def phase_fem3d():
         print(f"solve fem3d L=3 k=3 default run {i + 1}: c_dot_Dz={c!r} "
               f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} nd_levels={nd_levels(g3)} "
               f"max(|grad u| - s)={worst:.3e} "
-              f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}",
-              flush=True)
+              f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}"
+              + beside_previous("fem3d L=3 k=3", c, sol.SOL_main.its.tolist()), flush=True)
         check_launches(f"fem3d L=3 k=3 run {i + 1}", launches, WIDE_ND_PATH)
         if sorted(nd_levels(g3)) != [2]:
             raise RuntimeError(f"fem3d L=3 k=3: nested dissection on levels {nd_levels(g3)}, "
@@ -780,7 +842,8 @@ def phase_fem3d():
     rel = rel_to("fem3d L=2 k=3 forced ND", c, C_FEM3D_L2K3, 1e-5)
     print(f"solve fem3d L=2 k=3 dense_threshold=64: c_dot_Dz={c!r} rel_err={rel:.3e} "
           f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} nd_levels={nd_levels(g2)} "
-          f"launches={launches}", flush=True)
+          f"launches={launches}"
+          + beside_previous("fem3d L=2 k=3 forced ND", c, sol.SOL_main.its.tolist()), flush=True)
     check_launches("fem3d L=2 k=3 forced ND", launches, WIDE_ND_PATH)
     return first
 
@@ -810,7 +873,8 @@ def phase_obstacle(L=3):
     lo = float(gap.min())
     print(f"solve obstacle fem2d L={L} (infeasible start): feasibility its={feas.its.tolist()} "
           f"ts={feas.ts} main its={sol.SOL_main.its.tolist()} c_dot_Dz={c!r} "
-          f"min(u - obstacle)={lo:.3e} wall_s={wall:.3f} launches={launches}", flush=True)
+          f"min(u - obstacle)={lo:.3e} wall_s={wall:.3f} launches={launches}"
+          + beside_previous(f"obstacle L={L}", c, sol.SOL_main.its.tolist()), flush=True)
     if not feas.its.sum() > 0:
         raise RuntimeError(f"obstacle L={L}: the feasibility phase did not run")
     if not -1e-6 < lo < 1e-3:
@@ -840,10 +904,14 @@ def phase_parabolic():
         ok = sol.ts == [0.0, 0.5, 1.0] and len(sol.u) == 3 and all(
             tuple(u.shape) == (g.n, 3) and bool(torch.isfinite(u).all()) for u in sol.u)
         shapes = sorted({tuple(ctx._P[-1].shape[1:]) for ctx in g.ctx_cache.values()})
-        print(f"parabolic_solve {label} h=0.5 t1=1.0 p=1.0: ts={sol.ts} "
-              f"its={[s.SOL_main.its.tolist() for s in sol.sols]} "
-              f"c_dot_Dz={[s.SOL_main.c_dot_Dz[-1] for s in sol.sols]!r} fine (nq, k, C)={shapes} "
-              f"wall_s={wall:.3f} launches={launches}", flush=True)
+        its = [s.SOL_main.its.tolist() for s in sol.sols]
+        cs = [float(s.SOL_main.c_dot_Dz[-1]) for s in sol.sols]
+        prev = PREVIOUS.get(f"parabolic {label}")
+        print(f"parabolic_solve {label} h=0.5 t1=1.0 p=1.0: ts={sol.ts} its={its} c_dot_Dz={cs!r} "
+              f"fine (nq, k, C)={shapes} wall_s={wall:.3f} launches={launches}"
+              + (f" [previous commit: c_dot_Dz={prev[0]!r} its={prev[1]}; change "
+                 f"{max(abs(a - b) / abs(b) for a, b in zip(cs, prev[0])):.3e} rel"
+                 f"{', bit for bit' if (cs, its) == prev else ''}]" if prev else ""), flush=True)
         if not ok:
             raise RuntimeError(f"parabolic_solve {label}: ts={sol.ts}, snapshots "
                                f"{[tuple(u.shape) for u in sol.u]} not finite of shape ({g.n}, 3)")
@@ -911,6 +979,17 @@ def main() -> int:
         print(f"he_assemble ({f7.nelem},{f7.nq},4,{2 * f7.nl}) {str(dtype).split('.')[-1]}: "
               f"{cfg['elements_per_cta']} elements per CTA, {cfg['threads']} threads and "
               f"{cfg['smem_bytes']} bytes of shared memory per CTA, {cfg['ctas']} CTAs", flush=True)
+    cfg = ck.he_assemble_wide_config(torch.float64, 64, 64, 5, 128)
+    m_, n_, k_ = cfg["mma"]
+    print(f"he_assemble_wide (64,64,5,128) float64: {cfg['tile']}x{cfg['tile']} He tile per CTA, "
+          f"{cfg['threads'] // 32} warps, {cfg['smem_bytes']} bytes of shared memory per CTA, "
+          f"{cfg['ctas']} CTAs, MMA m{m_}n{n_}k{k_} float64, {cfg['rows_per_round']} rows "
+          f"({cfg['points_per_round']} quadrature points) per round", flush=True)
+    dmma = dmma_count(so)
+    print(f"he_assemble_wide in {os.path.basename(so)}: {sum(dmma.values())} DMMA instructions "
+          f"{dmma}", flush=True)
+    if not sum(dmma.values()):
+        raise RuntimeError("he_assemble_wide: the built object holds no DMMA instruction")
     t0 = time.perf_counter()
     g3d = mt.fem3d(L=3, k=3)
     print(f"fem3d L=3 k=3 geometry (for the hvp cases): nl="
@@ -924,7 +1003,8 @@ def main() -> int:
     sol, c, wall, launches = solve(mt.fem2d(L=5), "L=5")
     rel = check_pin("L=5", c, 5)
     print(f"solve fem2d L=5 default: c_dot_Dz={c!r} rel_err={rel:.3e} "
-          f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} launches={launches}", flush=True)
+          f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} launches={launches}"
+          + beside_previous("fem2d L=5", c, None), flush=True)
     check_launches("L=5", launches, DENSE_PATH)
 
     # phase 4: L=6, dense route on every level; warm-up, then the timed run
@@ -935,8 +1015,8 @@ def main() -> int:
     rel = check_pin("L=6 dense", c, 6)
     print(f"solve fem2d L=6 dense_threshold=1<<30: c_dot_Dz={c!r} rel_err={rel:.3e} "
           f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} (warm-up {wall_warmup:.3f}) "
-          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}",
-          flush=True)
+          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}"
+          + beside_previous("fem2d L=6 dense", c, None), flush=True)
     check_launches("L=6 dense", launches, DENSE_PATH)
 
     # phase 5: L=6 default (nested dissection on the fine level), twice
@@ -947,8 +1027,8 @@ def main() -> int:
         rel = check_pin(f"L=6 default run {i + 1}", c, 6)
         print(f"solve fem2d L=6 default run {i + 1}: c_dot_Dz={c!r} rel_err={rel:.3e} "
               f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} nd_levels={nd_levels(g6)} "
-              f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}",
-              flush=True)
+              f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}"
+              + beside_previous("fem2d L=6 default", c, None), flush=True)
         check_launches(f"L=6 default run {i + 1}", launches, ND_PATH)
         runs.append((sol.SOL_main.its.tolist(), c))
     if runs[0] != runs[1]:
@@ -964,8 +1044,8 @@ def main() -> int:
     print(f"solve fem2d L=7 default: c_dot_Dz={c!r} band={FLOOR_BAND_7} "
           f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f} "
           f"symbolic_s={nd_levels(g7)} "
-          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}",
-          flush=True)
+          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} launches={launches}"
+          + beside_previous("fem2d L=7", c, None), flush=True)
     check_launches("L=7", launches, ND_PATH)
     del g6, g6d, g7, sym7
     torch.cuda.empty_cache()

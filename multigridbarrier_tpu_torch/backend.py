@@ -28,7 +28,9 @@ class Backend:
       dtype: floating dtype of geometry and solver tensors (float64 is the
         reference's correctness contract).
       itype: integer dtype of index tensors (the kernels take int32).
-      device: the torch device every tensor is created on.
+      device: the torch device every tensor is created on; None (the
+        default) resolves to the current CUDA device and raises when there
+        is none, as backend_cuda() does: the CPU is used only when asked for.
       dense_threshold: levels with nf*m <= this many unknowns (and level
         0) solve their Newton systems with dense Cholesky; the others with
         the nested-dissection multifrontal Cholesky (solver/ndsolve.py).
@@ -37,11 +39,18 @@ class Backend:
 
     dtype: torch.dtype = torch.float64
     itype: torch.dtype = torch.int32
-    device: torch.device = torch.device("cpu")
+    device: torch.device | None = None
     dense_threshold: int = 2048
 
     def __post_init__(self):
-        object.__setattr__(self, "device", torch.device(self.device))
+        if self.device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("Backend: no CUDA device is available; pass device= "
+                                   "or use backend_cpu()")
+            dev = torch.device("cuda", torch.cuda.current_device())
+        else:
+            dev = torch.device(self.device)
+        object.__setattr__(self, "device", dev)
 
 
 def _no_mesh(kw):

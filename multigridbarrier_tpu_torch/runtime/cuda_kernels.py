@@ -7,7 +7,8 @@ the gather kernels probed in tools/probe_pallas_gather.py):
      he_assemble_weighted   the same with W = F2 * w formed in the kernel
      he_assemble_wide the same function for wide elements  csrc/he_assemble_wide.cu
                       (C > 32 or nq*k > 64: hexahedra, more than two fields),
-                      both entries; HePlan picks the kernel by shape
+                      both entries, on float64 tensor cores (DMMA) in
+                      float64; HePlan picks the kernel by shape
   B. element_matvec   per-element He[e] @ v[idx[e]]        csrc/element_matvec.cu
      hvp              gather + element matvec + node sum   csrc/hvp.cu
   C. table_sum        gather-table node sum (no atomics)   csrc/table_sum.cu
@@ -193,6 +194,9 @@ def load():
             lib.mgb_he_assemble_config.argtypes = [
                 i32, i64, i32, i32, i32, i32, ctypes.POINTER(i64)]
             lib.mgb_he_assemble_config.restype = i32
+            lib.mgb_he_assemble_wide_config.argtypes = [
+                i32, i64, i32, i32, i32, ctypes.POINTER(i64)]
+            lib.mgb_he_assemble_wide_config.restype = i32
             _LIB = lib
     return _LIB
 
@@ -299,9 +303,12 @@ class HePlan:
     kept alive.  Any shape runs: the plan picks the narrow kernel
     (csrc/he_assemble.cu, one He column per thread) where C <= 32 and
     nq*k <= 64, and the wide kernel (csrc/he_assemble_wide.cu, He tiled
-    over the threads of several CTAs) otherwise; `kernel` ("narrow" or
+    over several CTAs; float64 on the tensor cores, where the card refuses
+    k > 40 for want of shared memory) otherwise; `kernel` ("narrow" or
     "wide") overrides the choice, for the checks that hold the two against
-    each other where both apply (they agree bit for bit).  Launches count
+    each other where both apply (bit for bit in float32; in float64 the
+    tensor cores may order a sum otherwise, so they are held within
+    1e-13).  Launches count
     under LAUNCHES["he_assemble"] or LAUNCHES["he_assemble_wide"].
     plan(W) = he_assemble(P, W) and
     plan.weighted(F2) = he_assemble_weighted(P, F2, w), with only W or F2
@@ -399,6 +406,21 @@ def he_assemble_config(dtype, nelem: int, nq: int, k: int, C: int, weighted: boo
     if rc != 0:
         raise ValueError(f"he_assemble: the narrow kernel does not take nq={nq}, k={k}, C={C}")
     return dict(zip(("elements_per_cta", "threads", "ctas", "smem_bytes"), out))
+
+
+def he_assemble_wide_config(dtype, nelem: int, nq: int, k: int, C: int):
+    """The wide kernel's launch configuration (weighted entry) for a shape
+    on the current CUDA device: He tile edge, threads per CTA, CTAs, shared
+    memory per CTA, rows of the reduction axis per round, quadrature points
+    per round (0 where a round cuts across points) and the MMA shape (m, n,
+    k), (0, 0, 0) where the design uses no tensor cores (float32)."""
+    out = (ctypes.c_int64 * 9)()
+    rc = load().mgb_he_assemble_wide_config(
+        torch.empty((), dtype=dtype).element_size(), nelem, nq, k, C, out)
+    if rc != 0:
+        raise ValueError(f"he_assemble_wide: the wide kernel does not take nq={nq}, k={k}, C={C}")
+    keys = ("tile", "threads", "ctas", "smem_bytes", "rows_per_round", "points_per_round")
+    return {**dict(zip(keys, out[:6])), "mma": tuple(out[6:9])}
 
 
 # ---------------------------------------------------------------------------
