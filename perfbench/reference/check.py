@@ -1,0 +1,265 @@
+"""The plain judge of a solve: is z a point of the stated problem, on its
+central path at t = 1/tol to the float64 floor, and is the objective the
+solver reports the objective of z?
+
+The problem (the configuration's): minimise J(z) = sum_i w_i c(x_i).(Dz)_i
+over z in z_g + V, with (Dz)_i inside the cone ||q|| <= s at every point
+(p = 1), V the continuous nodal space vanishing on the boundary.  The
+solver follows the central path of t J + sum_i w_i F(Dz_i), with the cone's
+barrier F = -log(s^2 - |q|^2), to t = 1/tol.
+
+Everything here is worked out again from the mesh of mesh.py and the data
+callables' coefficients: the program's iterate z and its reported objective
+are read only to be judged.  The numbers (each compared with a limit by the
+harness):
+
+  infeasible    points where Dz lies outside the cone by more than twice
+                the rounding bound of a D z computation (gamma_nq |D| |z|
+                per entry): the solver decides feasibility on its own D z,
+                the judge on its own, each within one bound of the exact
+                value; at the float64 floor the margin s^2 - |q|^2 of a
+                sound answer sits at ~1e-16 and its sign is the rounding's
+  subspace_err  how far z - z_g is from V: jumps between elements at shared
+                nodes, values on the boundary, centroid values off the P2
+                interpolant (2D), over max |z|
+  decrement     the Newton decrement g^T H^{-1} g of the barrier problem
+                t J + sum_i w_i F(Dz_i) at z and t = 1/tol (the solver's own
+                measure of how far an iterate is from the central point):
+                a solve that ends on the central path at 1/tol reads it at
+                the float64 floor; a start left where it was, a path cut
+                short by orders of magnitude in t, a lower precision or a
+                solve of another problem read it orders of magnitude
+                higher.  It does not bound J(z) - min J to 1/tol: the
+                weighted barrier is self-concordant only over its least
+                weight
+  obj_rel       the program's reported objective against J(z)
+
+The decrement's system is factored densely (torch Cholesky of the matrix
+scaled to a unit diagonal) on the device it is given: one factor a judged
+iterate.  At 1/tol the matrix spans some 1e18 in scale (the cone's
+margins in the flat parts of the solution are ~1e-16) and rounds to
+indefinite: the factor takes the least shift of the unit diagonal, from
+1e-15 up by tens, that it accepts; a shift only lowers the decrement.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .mesh import Mesh
+
+
+@dataclasses.dataclass
+class Problem:
+    """D rows as (field, op) with op 'id' or an axis 0..dim-1; the cone rows
+    (the q rows then s); the published cost rows and the data callables in
+    numpy: cost(x) (n, k) and start(x) (n, nfields)."""
+
+    rows: list
+    nfields: int
+    cone: list
+    cost: object
+    start: object
+    tol: float
+
+
+def default_problem(dim: int, cost, start, tol: float) -> Problem:
+    rows = [(0, "id")] + [(0, a) for a in range(dim)] + [(1, "id")]
+    return Problem(rows, 2, list(range(1, dim + 2)), cost, start, tol)
+
+
+class Judge:
+    """The mesh, the problem and the dense Newton system's index maps, on
+    one device, built once per run and applied to every solve."""
+
+    def __init__(self, mesh: Mesh, prob: Problem, device="cpu", dtype=torch.float64):
+        self.mesh, self.prob, self.dev = mesh, prob, torch.device(device)
+        dt = self.dtype = dtype
+        T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=self.dev)  # noqa: E731
+        self.x_np = mesh.x
+        self.w = T(mesh.w)
+        self.grad = [T(G) for G in mesh.grad]
+        self.c = T(prob.cost(mesh.x))
+        self.zg = T(prob.start(mesh.x))
+        ne, nq, nl, nf, k = mesh.nelem, mesh.nq, mesh.interp.shape[1], prob.nfields, len(prob.rows)
+        self.ne, self.nq, self.nl, self.nf, self.k = ne, nq, nl, nf, k
+        # P[e, q, j, f*nl + a]: row j of D applied to the nodal basis function a of field f
+        interp = T(mesh.interp)
+        P = torch.zeros((ne, nq, k, nf * nl), dtype=dt, device=self.dev)
+        for j, (f, op) in enumerate(prob.rows):
+            B = interp.expand(ne, nq, nl) if op == "id" else self.grad[op] @ interp
+            P[:, :, j, f * nl:(f + 1) * nl] = B
+        self.P = P
+        # dofs: interior nodes, numbered per field
+        interior = ~mesh.boundary
+        dof = np.full(mesh.boundary.shape[0], -1, np.int64)
+        dof[interior] = np.arange(int(interior.sum()))
+        self.ndof = int(interior.sum())
+        ed = dof[mesh.node_of]  # (ne, nl)
+        edf = np.concatenate([np.where(ed >= 0, ed + f * self.ndof, -1) for f in range(nf)], axis=1)
+        self.edof = torch.as_tensor(edf, device=self.dev)  # (ne, nf*nl), -1 on the boundary
+        self.N = nf * self.ndof
+
+    # -- pointwise -----------------------------------------------------------
+
+    def apply_D(self, z):
+        ze = z.reshape(self.ne, self.nq, self.nf)
+        cols = []
+        for f, op in self.prob.rows:
+            v = ze[:, :, f]
+            cols.append(v if op == "id" else torch.einsum("eqr,er->eq", self.grad[op], v))
+        return torch.stack(cols, dim=-1).reshape(-1, self.k)
+
+    def _cone(self, y):
+        cone = self.prob.cone
+        return y[:, cone[:-1]], y[:, cone[-1]]
+
+    def rounding(self, z):
+        """A bound on |fl(D z) - D z| per entry: gamma_nq |D| |z| (the id rows are exact)."""
+        g = self.nq * torch.finfo(z.dtype).eps
+        g = g / (1 - g)
+        za = z.abs().reshape(self.ne, self.nq, self.nf)
+        cols = [torch.zeros_like(za[:, :, f]) if op == "id"
+                else g * torch.einsum("eqr,er->eq", self.grad[op].abs(), za[:, :, f])
+                for f, op in self.prob.rows]
+        return torch.stack(cols, dim=-1).reshape(-1, self.k)
+
+    def barrier_derivs(self, y, m=None):
+        """F' (n, k) and F'' (n, k, k) of -log(s^2 - |q|^2), zero off the cone
+        rows; m, if given, stands for the margin s^2 - |q|^2."""
+        q, s = self._cone(y)
+        if m is None:
+            m = s * s - (q * q).sum(1)
+        n = y.shape[0]
+        cone = self.prob.cone
+        nc = len(cone)
+        g = torch.zeros((n, nc), dtype=y.dtype, device=y.device)
+        g[:, :-1] = 2 * q / m[:, None]
+        g[:, -1] = -2 * s / m
+        H = torch.zeros((n, nc, nc), dtype=y.dtype, device=y.device)
+        eye = torch.eye(nc - 1, dtype=y.dtype, device=y.device)
+        H[:, :-1, :-1] = 2 * eye / m[:, None, None] + 4 * q[:, :, None] * q[:, None, :] / (m * m)[:, None, None]
+        H[:, :-1, -1] = -4 * s[:, None] * q / (m * m)[:, None]
+        H[:, -1, :-1] = H[:, :-1, -1]
+        H[:, -1, -1] = -2 / m + 4 * s * s / (m * m)
+        F1 = torch.zeros((n, self.k), dtype=y.dtype, device=y.device)
+        F2 = torch.zeros((n, self.k, self.k), dtype=y.dtype, device=y.device)
+        ci = torch.as_tensor(cone, device=y.device)
+        F1[:, ci] = g
+        F2[:, ci[:, None], ci[None, :]] = H
+        return F1, F2
+
+    # -- the subspace ----------------------------------------------------------
+
+    def subspace_err(self, z):
+        d = (z - self.zg).reshape(self.ne, self.nq, self.nf)
+        node_pts = torch.as_tensor(self.mesh.node_pts, device=self.dev)
+        dn = d[:, node_pts, :]  # (ne, nl, nf) nodal values
+        node = torch.as_tensor(self.mesh.node_of, device=self.dev).reshape(-1)
+        flat = dn.reshape(-1, self.nf)
+        nn = self.mesh.boundary.shape[0]
+        hi = torch.full((nn, self.nf), -torch.inf, dtype=z.dtype, device=self.dev)
+        lo = torch.full((nn, self.nf), torch.inf, dtype=z.dtype, device=self.dev)
+        hi = hi.scatter_reduce(0, node[:, None].expand_as(flat), flat, "amax")
+        lo = lo.scatter_reduce(0, node[:, None].expand_as(flat), flat, "amin")
+        jump = (hi - lo).abs().max()
+        bnd = torch.as_tensor(self.mesh.boundary, device=self.dev)
+        edge = hi[bnd].abs().max().clamp_min(lo[bnd].abs().max())
+        interp = torch.as_tensor(self.mesh.interp, dtype=z.dtype, device=self.dev)
+        off = (torch.einsum("qa,eaf->eqf", interp, dn) - d).abs().max()
+        scale = z.abs().max().clamp_min(1e-300)
+        return float(torch.stack([jump, edge, off]).max() / scale)
+
+    # -- the Newton system of the barrier problem -----------------------------
+
+    def _scatter(self, ve):
+        """(ne, nf*nl) element vectors -> (N,) dof vector, boundary left out."""
+        keep = self.edof >= 0
+        out = torch.zeros(self.N, dtype=ve.dtype, device=self.dev)
+        return out.index_add_(0, self.edof[keep], ve[keep])
+
+    def to_points(self, v):
+        """(N,) dof vector -> (n, nfields) point values of the nodal function."""
+        keep = self.edof >= 0
+        ve = torch.where(keep, v[self.edof.clamp_min(0)], torch.zeros((), dtype=v.dtype, device=self.dev))
+        interp = torch.as_tensor(self.mesh.interp, dtype=v.dtype, device=self.dev)
+        ve = ve.reshape(self.ne, self.nf, self.nl)
+        return torch.einsum("qa,efa->eqf", interp, ve).reshape(-1, self.nf)
+
+    def system(self, y, t, m=None):
+        """The gradient g (N,) and the dense Hessian H (N, N) of
+        t J + sum w F at y, over the dofs of V (m: the margins, as in
+        barrier_derivs)."""
+        F1, F2 = self.barrier_derivs(y, m)
+        w = self.w
+        ge = torch.einsum("eqj,eqjc->ec",
+                          (w[:, None] * (t * self.c + F1)).reshape(self.ne, self.nq, self.k), self.P)
+        g = self._scatter(ge)
+        WF = (w[:, None, None] * F2).reshape(self.ne, self.nq, self.k, self.k)
+        He = torch.einsum("eqjc,eqjl,eqld->ecd", self.P, WF, self.P)
+        keep = self.edof >= 0
+        C = self.edof.shape[1]
+        pair = keep[:, :, None] & keep[:, None, :]
+        rows = self.edof[:, :, None].expand(-1, C, C)[pair]
+        cols = self.edof[:, None, :].expand(-1, C, C)[pair]
+        H = torch.zeros(self.N * self.N, dtype=y.dtype, device=self.dev)
+        H.index_add_(0, rows * self.N + cols, He[pair])
+        return g, H.reshape(self.N, self.N)
+
+    def factor(self, H):
+        """H scaled in place to a unit diagonal and its Cholesky factor, with
+        the least shift of that diagonal, from five roundings (1e-15 in
+        float64) up by tens, that the factor accepts: (factor or None,
+        scale, shift)."""
+        fi = torch.finfo(H.dtype)
+        dsc = H.diagonal().abs().clamp_min(fi.tiny).rsqrt()
+        H.mul_(dsc[:, None]).mul_(dsc[None, :])
+        first = float(f"{5 * fi.eps:.0e}")
+        shift, added = first, 0.0
+        while True:
+            H.diagonal().add_(shift - added)
+            added = shift
+            Lc, info = torch.linalg.cholesky_ex(H)
+            if int(info) == 0:
+                return Lc, dsc, shift
+            if shift >= 1e4 * first:
+                return None, dsc, shift
+            shift *= 10
+
+    def decrement2(self, y, t, m=None):
+        """(g^T H^{-1} g of t J + sum w F at y over the dofs of V, the
+        diagonal shift the factor took)."""
+        g, H = self.system(y, t, m)
+        Lc, dsc, shift = self.factor(H)
+        del H
+        if Lc is None:
+            return float("inf"), shift
+        u = torch.linalg.solve_triangular(Lc, (g * dsc)[:, None], upper=False)
+        return float((u * u).sum()), shift
+
+    # -- the judgement -----------------------------------------------------------
+
+    def judge(self, z, reported_obj: float) -> dict:
+        z = torch.as_tensor(z, device=self.dev).to(self.dtype)
+        y = self.apply_D(z)
+        J = float((self.w * (self.c * y).sum(1)).sum())
+        q, s = self._cone(y)
+        bq, bs = self._cone(2 * self.rounding(z))
+        qmin = (q.abs() - bq).clamp_min(0).norm(dim=1)
+        outside = ((s + bs) <= qmin) | ~torch.isfinite(y).all(1)
+        infeasible = int(outside.sum())
+        # a margin that rounds to <= 0 inside the rounding takes the
+        # rounding's bound on it, so the barrier stays defined there
+        margin = s * s - (q * q).sum(1)
+        mb = 2 * (s.abs() * bs + (q.abs() * bq).sum(1)) + bs * bs
+        margin = torch.where(margin > 0, margin, mb)
+        out = dict(infeasible=infeasible, subspace_err=self.subspace_err(z),
+                   obj_rel=abs(reported_obj - J) / max(abs(J), 1e-300), objective=J)
+        if infeasible:
+            out.update(decrement=float("inf"), shift=0.0)
+            return out
+        out["decrement"], out["shift"] = self.decrement2(y, 1.0 / self.prob.tol, margin)
+        return out
