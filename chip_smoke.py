@@ -244,7 +244,7 @@ import torch
 
 import multigridbarrier_tpu_torch as mt
 from multigridbarrier_tpu_torch.runtime import cuda_kernels as ck
-from multigridbarrier_tpu_torch.runtime import dist
+from multigridbarrier_tpu_torch.runtime import dist, telemetry
 
 AMGB = importlib.import_module("multigridbarrier_tpu_torch.solver.amgb")
 from multigridbarrier_tpu_torch.runtime.ops import clear_caches
@@ -1198,6 +1198,8 @@ def solve(geometry, label, **kw):
     geometry's dtype and of shape (n, 2).  Returns (sol, c_dot_Dz, wall
     seconds, launches)."""
     kw.setdefault("p", 1.0)
+    built = len(telemetry.spans("nd.symbolic"))
+    known = {id(nd) for ctx in geometry.ctx_cache.values() for nd in ctx.nd.values()}
     torch.cuda.synchronize()
     ck.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1205,6 +1207,12 @@ def solve(geometry, label, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ck.LAUNCHES)
+    # the ND levels this solve built, in the order their symbolic spans ran
+    new = [nd for ctx in geometry.ctx_cache.values() for _, nd in sorted(ctx.nd.items())
+           if id(nd) not in known]
+    spans = telemetry.spans("nd.symbolic")[built:]
+    if len(spans) == len(new):
+        SYMBOLIC_S.update((id(nd), (b - a) / 1e9) for nd, (_, a, b) in zip(new, spans))
     if not (sol.z.shape == (geometry.n, 2) and bool(torch.isfinite(sol.z).all())
             and sol.z.dtype == geometry.x.dtype):
         raise RuntimeError(f"{label}: solution is not finite of shape ({geometry.n}, 2) "
@@ -1237,10 +1245,20 @@ def check_launches(label, launches, path):
         raise RuntimeError(f"{label}: {other} launched on a path of the other kernel A: {launches}")
 
 
+SYMBOLIC_S = {}  # id of an ND level -> host seconds of the nd.symbolic span that built it
+
+
+def symbolic_s(nd):
+    """Host seconds of the ND level's NDSymbolic (its nd.symbolic span, read
+    by solve()), or None."""
+    s = SYMBOLIC_S.get(id(nd))
+    return None if s is None else round(s, 3)
+
+
 def nd_levels(geometry):
     """{level: symbolic-build seconds} of the levels that took the
     nested-dissection route, over the geometry's solver contexts."""
-    return {lvl: round(nd.symbolic_s, 3) for ctx in geometry.ctx_cache.values()
+    return {lvl: symbolic_s(nd) for ctx in geometry.ctx_cache.values()
             for lvl, nd in sorted(ctx.nd.items())}
 
 
@@ -1855,7 +1873,7 @@ def phase_nd_engines(g7, ref6):
             print(f"solve fem2d L=7 {label} ({' '.join(f'{k}={v}' for k, v in values.items())})"
                   f"{f' run {i + 1}' if label == 'blocked+inverse' else ''}: c_dot_Dz={c!r} "
                   f"its={sol.SOL_main.its.tolist()} wall_s={wall:.3f}{reuse} "
-                  f"symbolic_s={nd.symbolic_s:.3f} [phase 6: c_dot_Dz={c6!r} its={its6} "
+                  f"symbolic_s={symbolic_s(nd)} [phase 6: c_dot_Dz={c6!r} its={its6} "
                   f"wall_s={wall6:.3f}] launches={launches} (row_gather "
                   f"{launches['row_gather'] - launches6['row_gather']:+d}, segment_add_ "
                   f"{launches['segment_add_'] - launches6['segment_add_']:+d} against phase 6)",
@@ -1963,7 +1981,7 @@ def phase_nd_per_depth(g7, g3, ref6):
         its = sol.SOL_main.its.tolist()
         print(f"solve fem2d L=7 MGB_ND_BUCKET=0 run {i + 1}: c_dot_Dz={c!r} its={its} "
               f"wall_s={wall:.3f} peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} "
-              f"symbolic_s={ {lvl: round(v.symbolic_s, 3) for lvl, v in sorted(ctx.nd.items())} } "
+              f"symbolic_s={ {lvl: symbolic_s(v) for lvl, v in sorted(ctx.nd.items())} } "
               f"groups={ {lvl: v.fz.sym.ngroups for lvl, v in sorted(ctx.nd.items())} } "
               f"launches={launches} per Newton step {per_step(launches, its)} "
               f"[phase 6: c_dot_Dz={c6!r} its={its6} wall_s={wall6:.3f} launches={launches6} "
@@ -2168,6 +2186,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    telemetry.enable()  # the printed symbolic seconds are the nd.symbolic spans
     card = card_line()
     print(f"card: {card}", flush=True)
     print(

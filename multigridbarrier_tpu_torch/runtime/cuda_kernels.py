@@ -64,6 +64,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import telemetry
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -846,7 +848,9 @@ class TablePlan:
             return hvp_plain(He, self.idx, self.tbl, vp, self.m)
         nf = vp.shape[0]
         if nf not in self._hvp:
-            self._hvp[nf] = _build_hvp_launch(self.tbl, self.idx, self.m, self.nl, nf)
+            telemetry.build("hvp_schedule")
+            with telemetry.span("hvp.schedule"):
+                self._hvp[nf] = _build_hvp_launch(self.tbl, self.idx, self.m, self.nl, nf)
         return _hvp_launch(self._fn["hvp", He.dtype], He, vp, self._hvp[nf], self.m, self.nl)
 
 

@@ -42,8 +42,11 @@ rejects non-finite steps.  The direction comes from one of these routes:
   (linsolve.dense_assemble) and takes the direction custom(H, -g).
 
 The Newton loop and the line search are host loops: each Newton step
-syncs with the host for the decrement and once per line-search trial, and
-the dense route also for the Cholesky status; the nested-dissection
+reads its scalars (decrement, barrier objective, c.Dz and the ND
+direction's finiteness) in one copy and one more value per line-search
+trial, and the dense route also the Cholesky status; every host read of
+the solve path goes through runtime/telemetry.read, which counts it, and
+the step's phases are telemetry spans; the nested-dissection
 factor and solve do not sync (the stale-factor PCG of MGB_ND_REUSE=1 does,
 once per CG iteration); the mgcg route syncs once per CG iteration
 for its exit test.
@@ -94,7 +97,7 @@ from torch.func import grad, hessian, vmap
 
 from ..fem.geometry import Geometry
 from ..options import ND_KNOBS, SolverOptions  # noqa: F401  (ND_KNOBS: re-exported for the tests)
-from ..runtime import dist
+from ..runtime import dist, telemetry
 from ..runtime.blockdiag import BlockDiagOp
 from ..runtime.cuda_kernels import GatherPlan, HePlan, SegmentPlan
 from .convex import Convex, convex_Euclidian_power
@@ -284,12 +287,9 @@ class _NDLevel:
         groups split over its ranks."""
         m = basis.m
         idx = basis.idx.cpu().numpy()
-        t0 = time.perf_counter()
         sym = NDSymbolic(idx, m, nf, node_coords(idx, m, x.cpu().numpy(), basis.nq),
                          leaf=int(os.environ.get("MGB_ND_LEAF", "16")))
-        self.symbolic_s = time.perf_counter() - t0  # host seconds, cached per level
         dev = basis.idx.device
-        self.fz = NDFactorizer(sym, dev, x.dtype, mesh=mesh)
         self.m, self.nf = m, nf
         # CG trips of the polish (the JAX CPU default; JAX's accelerator
         # default of 0 is not taken)
@@ -298,20 +298,23 @@ class _NDLevel:
         self.stale_cap = int(os.environ.get("MGB_ND_STALE_CAP", "40"))
         self.cap_max = int(os.environ.get("MGB_ND_REUSE_CAP", "30"))
         self.factors = self.reused = 0  # directions of each kind, over the level's life
+        self.finite = None  # whether the last fresh direction was finite (device bool), or None
         nvals = sym.nvals
-        # static index maps, each bound once to a launch plan of kernel D or C
-        self.pair_j = GatherPlan(narrow_idx(sym.pair_j, dev), m)
-        self.pair_vidx = GatherPlan(narrow_idx(sym.pair_vidx, dev), nvals)
-        self.pair_sum = SegmentPlan(None, narrow_idx(sym.pair_off, dev), len(sym.pair_j))
-        # node-major per-dof diagonal ids: vals[(f*nf+f)*nuniq + diag_pid]
-        self.diag_ids = narrow_idx(
-            (
-                (np.arange(nf, dtype=np.int64) * (nf + 1))[None, :] * sym.nuniq
-                + sym.diag_pid[:, None]
-            ).reshape(-1),
-            dev,
-        )
-        self.diag = GatherPlan(self.diag_ids, nvals)
+        with telemetry.span("nd.plans"):
+            self.fz = NDFactorizer(sym, dev, x.dtype, mesh=mesh)
+            # static index maps, each bound once to a launch plan of kernel D or C
+            self.pair_j = GatherPlan(narrow_idx(sym.pair_j, dev), m)
+            self.pair_vidx = GatherPlan(narrow_idx(sym.pair_vidx, dev), nvals)
+            self.pair_sum = SegmentPlan(None, narrow_idx(sym.pair_off, dev), len(sym.pair_j))
+            # node-major per-dof diagonal ids: vals[(f*nf+f)*nuniq + diag_pid]
+            self.diag_ids = narrow_idx(
+                (
+                    (np.arange(nf, dtype=np.int64) * (nf + 1))[None, :] * sym.nuniq
+                    + sym.diag_pid[:, None]
+                ).reshape(-1),
+                dev,
+            )
+            self.diag = GatherPlan(self.diag_ids, nvals)
         self.begin()
 
     def begin(self):
@@ -331,10 +334,15 @@ class _NDLevel:
 
     def step_direction(self, vals: torch.Tensor, gv: torch.Tensor, cg_rtol: float):
         """The Newton direction of one step, with the stale-factor PCG's
-        iterations and relative residual (0 and 0.0 where none was tried)."""
+        iterations and relative residual (0 and 0.0 where none was tried).
+        self.finite is then False on the device where the fresh direction
+        was not finite and the Jacobi direction replaced it, None where the
+        stale factor's direction was taken."""
+        self.finite = None
         if self.reuse and self.fac is not None and self.fail_streak < 2 \
                 and self.steps_since < self.stale_cap:
-            dvp, its, rel = self.stale(vals, gv, cg_rtol)
+            with telemetry.span("nd.stale"):
+                dvp, its, rel = self.stale(vals, gv, cg_rtol)
             if rel <= cg_rtol * 1.0001:  # sqrt-rounding slack on the gate
                 self.reused += 1
                 self.run_reused += 1
@@ -374,14 +382,15 @@ class _NDLevel:
         p = apply_fac(r)
         rz, rr = torch.dot(r, p), torch.dot(r, r)
         its = 0
-        while its < self.cap and bool(torch.isfinite(rr) & (rr > tol2)):
+        while its < self.cap and telemetry.read(torch.isfinite(rr) & (rr > tol2), "nd.stale"):
             xv, r, p, rz, ok = _pcg_trip(matvec, apply_fac, xv, r, p, rz)
             # a breakdown (indefinite or NaN) poisons rr: the loop exits and
             # the caller refactors
             rr = torch.where(ok, torch.dot(r, r), torch.full_like(rr, math.inf))
             its += 1
         rel = torch.sqrt(torch.abs(rr) / torch.clamp_min(bb, 1e-300))
-        rel = float(torch.where(torch.isfinite(xv).all(), rel, torch.full_like(rel, math.inf)))
+        rel = telemetry.read(torch.where(torch.isfinite(xv).all(), rel,
+                                         torch.full_like(rel, math.inf)), "nd.stale")
         return self._to_dvp(xv), its, rel
 
     def direction(self, vals: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
@@ -390,7 +399,8 @@ class _NDLevel:
         (kept as the stale factor under MGB_ND_REUSE=1)."""
         m = self.m
         b = -gv[:, :m].T.reshape(-1)
-        fac = self.fz.factor(vals)
+        with telemetry.span("nd.factor"):
+            fac = self.fz.factor(vals)
         vpair = self.pair_vidx(vals)
         if self.reuse:
             self.fac = fac
@@ -404,24 +414,27 @@ class _NDLevel:
         def matvec(v):
             return self.matvec(vpair, v)
 
-        xv = apply_fac(b)
-        r = b - matvec(xv)
-        p = apply_fac(r)
-        rz = torch.dot(r, p)
-        xv_cg = xv
-        for _ in range(self.n_cg):
-            xv_cg, r, p, rz, _ = _pcg_trip(matvec, apply_fac, xv_cg, r, p, rz)
+        with telemetry.span("nd.solve"):
+            xv = apply_fac(b)
+            r = b - matvec(xv)
+            p = apply_fac(r)
+            rz = torch.dot(r, p)
 
         def q_of(v):
             return 0.5 * torch.dot(v, matvec(v)) - torch.dot(b, v)
 
-        # keep the polished direction only where its quadratic model is lower
-        q_ir, q_cg = q_of(xv), q_of(xv_cg)
-        take_cg = torch.isfinite(xv_cg).all() & torch.isfinite(q_cg) & (q_cg <= q_ir)
-        xv = torch.where(take_cg, xv_cg, xv)
-        # 1e-300 rounds to 0 in float32: its floor is the smallest normal
-        dg = self.diag(vals).abs().clamp_min(max(1e-300, torch.finfo(vals.dtype).tiny))
-        xv = torch.where(torch.isfinite(xv).all(), xv, b / dg)
+        with telemetry.span("nd.polish"):
+            xv_cg = xv
+            for _ in range(self.n_cg):
+                xv_cg, r, p, rz, _ = _pcg_trip(matvec, apply_fac, xv_cg, r, p, rz)
+            # keep the polished direction only where its quadratic model is lower
+            q_ir, q_cg = q_of(xv), q_of(xv_cg)
+            take_cg = torch.isfinite(xv_cg).all() & torch.isfinite(q_cg) & (q_cg <= q_ir)
+            xv = torch.where(take_cg, xv_cg, xv)
+            # 1e-300 rounds to 0 in float32: its floor is the smallest normal
+            dg = self.diag(vals).abs().clamp_min(max(1e-300, torch.finfo(vals.dtype).tiny))
+            self.finite = torch.isfinite(xv).all()
+            xv = torch.where(self.finite, xv, b / dg)
         return self._to_dvp(xv)
 
 
@@ -453,12 +466,14 @@ class _HostLevel:
         a float64 solve, one copy back."""
         nv = vals.numel()
         if dist.rank(self.mesh) == 0:
-            host = torch.cat([vals, gv.reshape(-1)]).cpu().numpy().astype(np.float64, copy=False)
+            host = telemetry.read(torch.cat([vals, gv.reshape(-1)]), "host.solve",
+                                  numpy=True).astype(np.float64, copy=False)
             x, _, _ = self.solver.solve(host[:nv], -host[nv:], x0=self.x_prev)
         else:
             x = np.empty(gv.numel())
         if self.mesh is not None:
-            x = dist.broadcast(torch.from_numpy(x).to(gv.device), self.mesh).cpu().numpy()
+            x = telemetry.read(dist.broadcast(torch.from_numpy(x).to(gv.device), self.mesh),
+                               "host.solve", numpy=True)
         self.x_prev = x
         dvp = torch.tensor(x.reshape(self.nf, self.m + 1), dtype=gv.dtype, device=gv.device)
         dvp[:, self.m] = 0.0
@@ -497,7 +512,7 @@ class _MGCGLevel:
             x0_in=self.dv if self.warmstart else None,
             coarse_nd=ctx._get_mgcg_ndcoarse(self.level))
         self.dv = dvp
-        return dvp, its, float(rel)
+        return dvp, its, telemetry.read(rel, "mgcg")
 
 
 def _fine_solver() -> str:
@@ -642,7 +657,8 @@ class _SolverCtx:
         fy = _masked_wsum(self.w, vmap(self.barrier)(self.x, y))
         if self.mesh is not None:
             cy, fy = dist.ordered_sum(torch.stack([cy, fy]), self.mesh)
-        return float(t * cy + fy), float(cy)
+        phi, cy = telemetry.read(torch.stack([t * cy + fy, cy]), "predict")
+        return phi, cy
 
     def shard(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole point tensor (n, ...); t off a mesh."""
@@ -667,6 +683,11 @@ class _SolverCtx:
         Returns (z_new, lam2, alpha, phi0, cy, dphi), the scalars as floats.
         alpha == 0 means the line search found no acceptable step; z is then
         returned unchanged."""
+        telemetry.count("newton_steps")
+        with telemetry.span("step"):
+            return self._step(level, z, t)
+
+    def _step(self, level: int, z, t: float):
         spec, ops, x, w, c = self.spec, self.ops, self.x, self.w, self.c
         nf, k = spec.nfields, spec.k
         basis = self._bases[level]
@@ -674,51 +695,65 @@ class _SolverCtx:
         nelem, nq, nl = basis.nelem, basis.nq, basis.nl
         barrier = self.barrier
 
-        y = _apply_D(ops, spec, z)
-        cy = torch.sum(w * torch.sum(c * y, dim=1))
-        fy0 = _masked_wsum(w, vmap(barrier)(x, y))
+        with telemetry.span("step.grad"):
+            y = _apply_D(ops, spec, z)
+            cy = torch.sum(w * torch.sum(c * y, dim=1))
+            fy0 = _masked_wsum(w, vmap(barrier)(x, y))
 
-        # gradient rows -> one fused contraction -> node sum (kernel C)
-        F1v = vmap(self._F1)(x, y)  # (n, k)
-        gy = (w[:, None] * (t * c + F1v)).reshape(nelem, nq, k)
-        gf = torch.einsum("eqj,eqjc->ec", gy, Pl)  # (nelem, nf*nl)
-        if self.mesh is None:
-            gv = basis.scatter_add_em(gf)  # (nf, m+1), pad column zeroed
-        else:  # the three sums over the ranks in one collective
-            gv = basis.table_plan.em(gf.contiguous())
-            tot = dist.ordered_sum(torch.cat([cy[None], fy0[None], gv.reshape(-1)]), self.mesh)
-            cy, fy0, gv = tot[0], tot[1], tot[2:].reshape(gv.shape)
-        phi0 = t * cy + fy0
+            # gradient rows -> one fused contraction -> node sum (kernel C)
+            F1v = vmap(self._F1)(x, y)  # (n, k)
+            gy = (w[:, None] * (t * c + F1v)).reshape(nelem, nq, k)
+            gf = torch.einsum("eqj,eqjc->ec", gy, Pl)  # (nelem, nf*nl)
+            if self.mesh is None:
+                gv = basis.scatter_add_em(gf)  # (nf, m+1), pad column zeroed
+            else:  # the three sums over the ranks in one collective
+                gv = basis.table_plan.em(gf.contiguous())
+                tot = dist.ordered_sum(torch.cat([cy[None], fy0[None], gv.reshape(-1)]), self.mesh)
+                cy, fy0, gv = tot[0], tot[1], tot[2:].reshape(gv.shape)
+            phi0 = t * cy + fy0
 
-        # element Hessians (kernel A forms W = F2 * w) and the Newton direction
-        F2v = vmap(self._F2)(x, y)  # (n, k, k); its (k, k) blocks may be transposed
-        if not (F2v.is_contiguous() or F2v.transpose(1, 2).is_contiguous()):
-            F2v = F2v.contiguous()
+        # element Hessians (kernel A forms W = F2 * w), their deduplicated
+        # values where the route reads them, and the Newton direction
+        mgcg_route = level in self._mgcg_route
+        with telemetry.span("step.hessian"):
+            F2v = vmap(self._F2)(x, y)  # (n, k, k); its (k, k) blocks may be transposed
+            if not (F2v.is_contiguous() or F2v.transpose(1, 2).is_contiguous()):
+                F2v = F2v.contiguous()
+            if not mgcg_route:
+                He = self._he_plan(level).weighted(F2v)
+            if level in self._nd_route or level in self._host_route:
+                vals = self._vals(level, He)
         self.cg_last = (0, 0.0)
-        if level in self._mgcg_route:
+        finite = None  # the ND direction's own finiteness, read with the step's scalars
+        if mgcg_route:
             if level not in self.mgcg:
+                telemetry.build("mgcg_level")
                 self.mgcg[level] = _MGCGLevel(self, level)
-            dvp, *cg = self.mgcg[level].direction(self, F2v, gv)
+            with telemetry.span("mgcg.solve"):
+                dvp, *cg = self.mgcg[level].direction(self, F2v, gv)
             self.cg_last = tuple(cg)
         elif level in self._nd_route:
-            He = self._he_plan(level).weighted(F2v)
             if level not in self.nd:
+                telemetry.build("nd_level")
                 self.nd[level] = _NDLevel(self._gbases[level], nf, self.geometry.x, self.mesh)
-            dvp, *cg = self.nd[level].step_direction(self._vals(level, He), gv, self.cg_rtol)
+            nd = self.nd[level]
+            with telemetry.span("nd.direction"):
+                dvp, *cg = nd.step_direction(vals, gv, self.cg_rtol)
+            finite = nd.finite
             self.cg_last = tuple(cg)
         elif level in self._host_route:
-            He = self._he_plan(level).weighted(F2v)
-            dvp = self.host[level].direction(self._vals(level, He), gv)
+            with telemetry.span("host.solve"):
+                dvp = self.host[level].direction(vals, gv)
         else:
-            He = self._he_plan(level).weighted(F2v)
             sys_ = LevelSystem(He, idx, m, basis.scatter_idx, self._table(level),
                                basis.table_plan, mesh=self.mesh)
-            if self.linear_solver is None:
-                dvp = dense_solve(sys_, nf, -gv)
-            else:
-                out = self.linear_solver(dense_assemble(sys_, nf), -gv.reshape(-1))
-                out = torch.as_tensor(out, dtype=gv.dtype, device=gv.device).reshape(nf, m + 1)
-                dvp = torch.cat([out[:, :m], out.new_zeros((nf, 1))], dim=1)
+            with telemetry.span("dense.solve"):
+                if self.linear_solver is None:
+                    dvp = dense_solve(sys_, nf, -gv)
+                else:
+                    out = self.linear_solver(dense_assemble(sys_, nf), -gv.reshape(-1))
+                    out = torch.as_tensor(out, dtype=gv.dtype, device=gv.device).reshape(nf, m + 1)
+                    dvp = torch.cat([out[:, :m], out.new_zeros((nf, 1))], dim=1)
         lam2_t = -torch.dot(gv.reshape(-1), dvp.reshape(-1))
 
         # direction in Dz-space (fused contraction)
@@ -728,7 +763,13 @@ class _SolverCtx:
         c_dY = torch.sum(w * torch.sum(c * dY, dim=1))
         summed = self.mesh is None  # on a mesh, c_dY is summed with the first trial
 
-        lam2, phi0, cy_f = float(lam2_t), float(phi0), float(cy)
+        # the step's scalars in one copy, the ND direction's finiteness with them
+        with telemetry.span("step.read"):
+            scalars = [lam2_t, phi0, cy] + ([finite.to(lam2_t.dtype)] if finite is not None else [])
+            host = telemetry.read(torch.stack(scalars), "step")
+        lam2, phi0, cy_f = host[:3]
+        if finite is not None and not host[3]:
+            telemetry.count("nd_fallbacks")
         if not math.isfinite(lam2):
             # no acceptable step exists: every trial compares against NaN
             return z, lam2, 0.0, phi0, cy_f, 0.0
@@ -744,26 +785,29 @@ class _SolverCtx:
             # linear part stays in difference form: at large t, |phi| ~ t
             # while the Armijo decrease is O(lam2).
             nonlocal c_dY, summed
-            za = z + alpha * dz
-            ya = _apply_D(ops, spec, za)
-            fy = _masked_wsum(w, vmap(barrier)(x, ya))
-            if not summed:  # c . dY rides with the first trial
-                c_dY, fy = dist.ordered_sum(torch.stack([c_dY, fy]), self.mesh)
-                summed = True
-            elif self.mesh is not None:
-                fy = dist.ordered_sum(fy, self.mesh)
-            dfy = fy - fy0
-            return za, float(t * alpha * c_dY + dfy)
+            telemetry.count("ls_trials")
+            with telemetry.span("ls.trial"):
+                za = z + alpha * dz
+                ya = _apply_D(ops, spec, za)
+                fy = _masked_wsum(w, vmap(barrier)(x, ya))
+                if not summed:  # c . dY rides with the first trial
+                    c_dY, fy = dist.ordered_sum(torch.stack([c_dY, fy]), self.mesh)
+                    summed = True
+                elif self.mesh is not None:
+                    fy = dist.ordered_sum(fy, self.mesh)
+                dfy = fy - fy0
+                return za, telemetry.read(t * alpha * c_dY + dfy, "ls.trial")
 
         def accept(alpha, dphi):
             return math.isfinite(dphi) and dphi <= -self.armijo * alpha * lam2
 
-        za, dphi = trial(alpha)
-        bt = 0
-        while not accept(alpha, dphi) and bt < self.max_backtrack:
-            alpha *= 0.5
+        with telemetry.span("step.line_search"):
             za, dphi = trial(alpha)
-            bt += 1
+            bt = 0
+            while not accept(alpha, dphi) and bt < self.max_backtrack:
+                alpha *= 0.5
+                za, dphi = trial(alpha)
+                bt += 1
         if not accept(alpha, dphi):
             # rejected step; the direction may carry NaNs from a broken solve
             return z, lam2, 0.0, phi0, cy_f, 0.0
@@ -771,6 +815,7 @@ class _SolverCtx:
 
     def _host_level(self, level: int) -> _HostLevel:
         if level not in self.host:
+            telemetry.build("host_level")
             self.host[level] = _HostLevel(self._gbases[level], self.spec.nfields,
                                           self.backend.mesh)
         return self.host[level]
@@ -779,6 +824,7 @@ class _SolverCtx:
         """The level's ValsTable (the host route's own pattern there): the
         whole level's pattern, summing this rank's elements on a mesh."""
         if level not in self._tables:
+            telemetry.build("vals_table")
             basis = self._gbases[level]
             pattern = self._host_level(level).pattern if level in self._host_route else None
             self._tables[level] = vals_table(basis.idx, basis.m, self.spec.nfields, pattern,
@@ -793,6 +839,7 @@ class _SolverCtx:
     def _he_plan(self, level: int) -> HePlan:
         """Kernel A bound to the level's P and the quadrature weights."""
         if level not in self._he_plans:
+            telemetry.build("he_plan")
             self._he_plans[level] = HePlan(self._P[level], self.w)
         return self._he_plans[level]
 
@@ -875,7 +922,9 @@ class _SolverCtx:
         with the same (lam2, alpha, stop code), bit for bit; a rank that
         differs would branch apart and hang the next collective."""
         v = torch.tensor([lam2, alpha, float(code)], dtype=torch.float64)
-        got = dist.gather_rows(v.to(self.geometry.x.device)[None], self.mesh).cpu()
+        got = telemetry.read(dist.gather_rows(v.to(self.geometry.x.device)[None], self.mesh),
+                             "mesh_check", numpy=True)
+        got = torch.from_numpy(got)
         if not bool((got.view(torch.int64) == v.view(torch.int64)).all()):
             raise RuntimeError(f"amgb: the ranks differ at level {level}, Newton step {kg}: "
                                f"(lam2, alpha, code) = {got.tolist()}")
@@ -883,6 +932,10 @@ class _SolverCtx:
     def run_level(self, level: int, z, t: float, theta2: float):
         """The Newton iteration at `level` until a stop code; returns
         (z, its, stop_code, traces)."""
+        with telemetry.span("level.run"):
+            return self._run_level(level, z, t, theta2)
+
+    def _run_level(self, level: int, z, t: float, theta2: float):
         eps = torch.finfo(z.dtype).eps
         if level in self._host_route:
             self._host_level(level).begin()
@@ -989,109 +1042,119 @@ def _path_follow(
     predict_debug = bool(os.environ.get("MGB_PREDICT_DEBUG"))
     z_conv_prev = t_conv_prev = None  # converged pair behind the current t
     z_conv_cur = None  # converged iterate at the last completed t
-    while True:
-        ts.append(t)
-        z_backup = z if z_conv_cur is None else z_conv_cur
-        its_backup = its.copy()
-        locked_backup = set(locked_levels)
-        ok = True
-        for lvl in range(L):
-            if lvl < L - 1 and (not use_coarse or lvl in locked_levels):
-                continue
-            # CONVERGED lam2 <= theta^2; LOCKED = the line search finds no
-            # step with measurable progress (the f64 cancellation floor);
-            # STALLED = decrement floor; DIVERGED/CAPPED reject the t-step
-            z, nits, code, tr = ctx.run_level(lvl, z, t, theta ** 2)
-            its[lvl] += nits
-            total += nits
-            for i in range(nits):
-                log.append(
-                    dict(
-                        phase=phase,
-                        t=t,
-                        level=lvl,
-                        lam2=float(tr["lam2"][i]),
-                        alpha=float(tr["alpha"][i]),
-                        phi=float(tr["phi"][i]),
-                        dphi=float(tr["dphi"][i]),
-                        cgits=int(tr["cgits"][i]),
-                        cgrel=float(tr["cgrel"][i]),
+    stage = None  # the open path.stage span: one t, its retries included
+    try:
+        while True:
+            if stage is None:
+                stage = telemetry.span("path.stage")
+                stage.__enter__()
+            ts.append(t)
+            z_backup = z if z_conv_cur is None else z_conv_cur
+            its_backup = its.copy()
+            locked_backup = set(locked_levels)
+            ok = True
+            for lvl in range(L):
+                if lvl < L - 1 and (not use_coarse or lvl in locked_levels):
+                    continue
+                # CONVERGED lam2 <= theta^2; LOCKED = the line search finds no
+                # step with measurable progress (the f64 cancellation floor);
+                # STALLED = decrement floor; DIVERGED/CAPPED reject the t-step
+                z, nits, code, tr = ctx.run_level(lvl, z, t, theta ** 2)
+                its[lvl] += nits
+                total += nits
+                for i in range(nits):
+                    log.append(
+                        dict(
+                            phase=phase,
+                            t=t,
+                            level=lvl,
+                            lam2=float(tr["lam2"][i]),
+                            alpha=float(tr["alpha"][i]),
+                            phi=float(tr["phi"][i]),
+                            dphi=float(tr["dphi"][i]),
+                            cgits=int(tr["cgits"][i]),
+                            cgrel=float(tr["cgrel"][i]),
+                        )
                     )
-                )
-            if total > maxit:
-                raise AMGBConvergenceFailure(
-                    f"amgb: exceeded maxit={maxit} Newton iterations"
-                )
-            if code == _SolverCtx.LOCKED:
-                locked_levels.add(lvl)
-            if code in (_SolverCtx.DIVERGED, _SolverCtx.CAPPED):
-                ok = False
-                break
-
-        if not ok:
-            z = z_backup
-            its = its_backup
-            # locks taken during the rejected sweep belong to the too
-            # aggressive t: roll the lock set back too
-            locked_levels = locked_backup
-            ts.pop()
-            t_prev = ts[-1] if ts else t0
-            retry_stage += 1
-            if retry_stage == 1:
-                # escalation 1: flip the sweep strategy for this t
-                use_coarse = not use_coarse
-                emit(
-                    f"[amgb:{phase}] step rejected; retrying t={t:.3e} "
-                    f"with {'full sweep' if use_coarse else 'finest level only'}"
-                )
-                continue
-            # escalation 2: halve the barrier step in log space
-            if kap <= 1.0 + 1e-9 or t <= t_prev * (1 + 1e-12):
-                raise AMGBConvergenceFailure(
-                    f"amgb: Newton failed to converge at t={t} "
-                    f"(phase={phase}) with minimal step"
-                )
-            kap = math.sqrt(kap)
-            t = min(t_prev * kap, t_end)
-            emit(f"[amgb:{phase}] step rejected; kappa -> {kap:.3f}, retry t={t:.3e}")
-            continue
-
-        # c.Dz at the last Newton evaluation of this t (run_level always
-        # takes at least one step)
-        cy_last = float(tr["cy"][nits - 1])
-        c_dots.append(cy_last)
-        emit(f"[amgb:{phase}] t={t:.4e} its={its.tolist()} c_dot_Dz={cy_last:.10e}")
-        use_coarse = False
-        retry_stage = 0
-
-        if early_stop is not None and early_stop(z):
-            break
-        if t >= t_end * (1 - 1e-12):
-            break
-        t_done = t
-        kap = min(user_kappa, kap * kap) if kap < user_kappa else user_kappa
-        t = min(t_done * kap, t_end)
-        z_done = z  # converged iterate at t_done
-        if predict and z_conv_prev is not None:
-            # 0.8 backs off from the full extrapolation, which aims at
-            # z(t) itself, whose margins are ~1/kappa of the current ones;
-            # gamma halves toward the plain warm start (gamma = 0)
-            gam = 0.8 * (1.0 / t - 1.0 / t_done) / (1.0 / t_done - 1.0 / t_conv_prev)
-            dz_path = z_done - z_conv_prev
-            phi_base = ctx.evaluate(z_done, t)[0]
-            for _ in range(3):
-                z_try = z_done + gam * dz_path
-                phi_try = ctx.evaluate(z_try, t)[0]
-                ok_try = math.isfinite(phi_try) and phi_try <= phi_base
-                if predict_debug:
-                    emit(f"[amgb:{phase}] predict t={t:.3e} gam={gam:.4f} "
-                         f"phi_base={phi_base:.10e} phi_try={phi_try:.10e} accept={ok_try}")
-                if ok_try:
-                    z = z_try
+                if total > maxit:
+                    raise AMGBConvergenceFailure(
+                        f"amgb: exceeded maxit={maxit} Newton iterations"
+                    )
+                if code == _SolverCtx.LOCKED:
+                    locked_levels.add(lvl)
+                if code in (_SolverCtx.DIVERGED, _SolverCtx.CAPPED):
+                    ok = False
                     break
-                gam *= 0.5
-        z_conv_prev, t_conv_prev = z_done, t_done
-        z_conv_cur = z_done
+
+            if not ok:
+                z = z_backup
+                its = its_backup
+                # locks taken during the rejected sweep belong to the too
+                # aggressive t: roll the lock set back too
+                locked_levels = locked_backup
+                ts.pop()
+                t_prev = ts[-1] if ts else t0
+                retry_stage += 1
+                if retry_stage == 1:
+                    # escalation 1: flip the sweep strategy for this t
+                    use_coarse = not use_coarse
+                    emit(
+                        f"[amgb:{phase}] step rejected; retrying t={t:.3e} "
+                        f"with {'full sweep' if use_coarse else 'finest level only'}"
+                    )
+                    continue
+                # escalation 2: halve the barrier step in log space
+                if kap <= 1.0 + 1e-9 or t <= t_prev * (1 + 1e-12):
+                    raise AMGBConvergenceFailure(
+                        f"amgb: Newton failed to converge at t={t} "
+                        f"(phase={phase}) with minimal step"
+                    )
+                kap = math.sqrt(kap)
+                t = min(t_prev * kap, t_end)
+                emit(f"[amgb:{phase}] step rejected; kappa -> {kap:.3f}, retry t={t:.3e}")
+                continue
+
+            # c.Dz at the last Newton evaluation of this t (run_level always
+            # takes at least one step)
+            stage.__exit__(None, None, None)
+            stage = None
+            cy_last = float(tr["cy"][nits - 1])
+            c_dots.append(cy_last)
+            emit(f"[amgb:{phase}] t={t:.4e} its={its.tolist()} c_dot_Dz={cy_last:.10e}")
+            use_coarse = False
+            retry_stage = 0
+
+            if early_stop is not None and early_stop(z):
+                break
+            if t >= t_end * (1 - 1e-12):
+                break
+            t_done = t
+            kap = min(user_kappa, kap * kap) if kap < user_kappa else user_kappa
+            t = min(t_done * kap, t_end)
+            z_done = z  # converged iterate at t_done
+            if predict and z_conv_prev is not None:
+                # 0.8 backs off from the full extrapolation, which aims at
+                # z(t) itself, whose margins are ~1/kappa of the current ones;
+                # gamma halves toward the plain warm start (gamma = 0)
+                gam = 0.8 * (1.0 / t - 1.0 / t_done) / (1.0 / t_done - 1.0 / t_conv_prev)
+                dz_path = z_done - z_conv_prev
+                phi_base = ctx.evaluate(z_done, t)[0]
+                for _ in range(3):
+                    z_try = z_done + gam * dz_path
+                    phi_try = ctx.evaluate(z_try, t)[0]
+                    ok_try = math.isfinite(phi_try) and phi_try <= phi_base
+                    if predict_debug:
+                        emit(f"[amgb:{phase}] predict t={t:.3e} gam={gam:.4f} "
+                             f"phi_base={phi_base:.10e} phi_try={phi_try:.10e} accept={ok_try}")
+                    if ok_try:
+                        z = z_try
+                        break
+                    gam *= 0.5
+            z_conv_prev, t_conv_prev = z_done, t_done
+            z_conv_cur = z_done
+    finally:
+        if stage is not None:
+            stage.__exit__(None, None, None)
 
     # Final polish at the finest level, only after a CONVERGED stage: a
     # stage that ended STALLED or LOCKED is already at the arithmetic floor.
@@ -1180,13 +1243,16 @@ def _get_ctx(geometry: Geometry, spec, barrier, c, **kw):
     )
     ctx = geometry.ctx_cache.get(key)
     if ctx is None:
-        ctx = _SolverCtx(geometry, spec, barrier, c, **kw)
+        telemetry.build("ctx")
+        with telemetry.span("ctx.build"):
+            ctx = _SolverCtx(geometry, spec, barrier, c, **kw)
         geometry.ctx_cache[key] = ctx
     else:
         ctx.set_data(c, x)
     return ctx
 
 
+@telemetry.solve
 def amgb(
     geometry: Geometry,
     *,
@@ -1269,7 +1335,7 @@ def amgb(
     # strict interiority <=> finite barrier (-log margin); the slack()
     # convention carries a +1 comfort margin that must not gate the skip: a
     # converged (near-boundary) iterate passed back in as z0 is feasible
-    if bool(torch.isfinite(torch.sum(w * vmap(Qset.barrier)(x, y0)))):
+    if telemetry.read(torch.isfinite(torch.sum(w * vmap(Qset.barrier)(x, y0))), "feasible"):
         z = z0
         SOL_feasibility = PhaseLog(
             t_elapsed=0.0,
@@ -1304,7 +1370,7 @@ def amgb(
             bsum = torch.sum(vmap(Qset.barrier)(ctx1.x, y))
             smax = dist.all_max(torch.max(sl), ctx1.mesh)
             fin = torch.isfinite(dist.ordered_sum(bsum, ctx1.mesh))
-            return bool(smax < -1e-8) and bool(fin)
+            return all(telemetry.read(torch.stack([smax < -1e-8, fin]), "feasible"))
 
         z_aug, SOL_feasibility, log1 = _path_follow(
             ctx1,
@@ -1359,7 +1425,8 @@ def amgb(
             # entry iterate re-enters the interior for small violations.
             def feasible64(zz):
                 yy = _apply_D(ops, spec, zz)
-                return bool(torch.isfinite(_masked_wsum(w, vmap(Qset.barrier)(x, yy))))
+                return telemetry.read(torch.isfinite(_masked_wsum(w, vmap(Qset.barrier)(x, yy))),
+                                      "feasible")
 
             for theta_blend in (0.0, 1e-4, 1e-3, 1e-2, 1e-1):
                 z_try = z64 if theta_blend == 0.0 else (1.0 - theta_blend) * z64 + theta_blend * z_pre

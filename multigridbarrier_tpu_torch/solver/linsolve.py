@@ -56,7 +56,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..runtime import cuda_kernels, dist
+from ..runtime import cuda_kernels, dist, telemetry
 from ..runtime.cuda_kernels import GatherPlan, SegmentPlan, TablePlan
 from ..runtime.ell import Ell, ell_from_scipy
 from .hostsolve import HostPattern
@@ -277,7 +277,7 @@ def dense_solve(sys_: LevelSystem, nf: int, bp: torch.Tensor, shifts=None):
             H = H0.clone()
             H.diagonal().mul_(1.0 + shift)
         L, info = torch.linalg.cholesky_ex(H)
-        if int(info) != 0:
+        if telemetry.read(info, "dense.info") != 0:
             return None
         x = torch.cholesky_solve(b, L)
         # two rounds of iterative refinement with matrix-free residuals
@@ -285,9 +285,11 @@ def dense_solve(sys_: LevelSystem, nf: int, bp: torch.Tensor, shifts=None):
         for _ in range(2):
             r = b - hvp(sys_, zero_pad(x)).reshape(-1, 1)
             x = x + torch.cholesky_solve(r, L)
-        return x if bool(torch.isfinite(x).all()) else None
+        return x if telemetry.read(torch.isfinite(x).all(), "dense.finite") else None
 
-    for s in shifts:
+    for i, s in enumerate(shifts):
+        if i:
+            telemetry.count("dense_shift_retries")
         x = attempt(s)
         if x is not None:
             return zero_pad(x)
@@ -653,7 +655,7 @@ def _graph_loop(state, body, flags, go_on):
     while True:
         cuda_kernels.replay(g, recorded)
         it += 1
-        if not go_on((*static[:4], it), f=out.tolist()):
+        if not go_on((*static[:4], it), f=telemetry.read(out, "mgcg.flags")):
             break
     return (*static[:4], it, *static[4:])
 
@@ -828,7 +830,7 @@ def mgcg_solve(
 
     one = torch.ones((), dtype=dtype, device=dev)
     if lmaxs_in is not None:
-        carried = lmaxs_in.tolist()
+        carried = telemetry.read(lmaxs_in, "mgcg.lmax")
         lmaxs = [one] + [lmaxs_in[i - 1] * one if carried[i - 1] > 0 else _est(i)
                          for i in range(1, len(systems))]
     else:
@@ -839,7 +841,7 @@ def mgcg_solve(
         lmaxs_out = torch.cat([torch.ones(n_drop, dtype=dtype, device=dev), lmaxs_out])
     # the cycle's eigenvalue estimates on the host (one sync), so that the
     # Chebyshev recurrences launch nothing
-    lmaxs32 = list(torch.stack(lmaxs).to(f32c).cpu().numpy())
+    lmaxs32 = list(telemetry.read(torch.stack(lmaxs).to(f32c), "mgcg.lmax", numpy=True))
 
     def _coarse_direct(r_pad):
         """Exact solve of the unscaled coarse operator; r_pad and the result
@@ -926,7 +928,7 @@ def mgcg_solve(
         it = state[4]
         if it >= limit:
             return False
-        go, below = f if f is not None else flags(state).tolist()
+        go, below = f if f is not None else telemetry.read(flags(state), "mgcg.flags")
         return go and (it < floor_cap or below)
 
     def body(state, proj=None):
@@ -991,7 +993,7 @@ def mgcg_solve(
         Vbuf.append(z2 / torch.sqrt(torch.clamp_min(rz2, eps)))
     x1, r1, p1, rz1, it1, q1, stagq1, healthy1, rb21 = state
     converged1 = _vdot(r1, r1) <= rtol * rtol * b2 + eps
-    if not bool((~converged1) & healthy1 & (it1 >= deflate_k + 4)):
+    if not telemetry.read((~converged1) & healthy1 & (it1 >= deflate_k + 4), "mgcg.flags"):
         return finish(x1, r1, it1)
 
     # valid Lanczos steps: alphas 0..it1-1 and vectors 0..it1

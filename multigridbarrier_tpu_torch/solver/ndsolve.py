@@ -80,7 +80,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..runtime import dist
+from ..runtime import dist, telemetry
 from ..runtime.cuda_kernels import GatherPlan, SegmentPlan
 
 
@@ -160,147 +160,157 @@ class NDSymbolic:
 
     def __init__(self, idx: np.ndarray, m: int, nf: int, coords: np.ndarray,
                  leaf: int = 16):
-        idx = np.asarray(idx)
-        self.m, self.nf = int(m), int(nf)
-        keys = (
-            idx[:, :, None].astype(np.int64) * (m + 1) + idx[:, None, :]
-        ).reshape(-1)
-        uniq = np.unique(keys)
-        self.nuniq = len(uniq)
-        pi = uniq // (m + 1)
-        pj = uniq % (m + 1)
-        real = (pi < m) & (pj < m)
-        ii, jj = pi[real], pj[real]
-        off = ii != jj
-        A = sp.csr_matrix(
-            (np.ones(int(off.sum())), (ii[off], jj[off])), shape=(m, m)
-        )
-        A = ((A + A.T) > 0).astype(np.int8).tocsr()
+        with telemetry.span("nd.symbolic"):
+            self._symbolic(idx, m, nf, coords, leaf)
 
-        fronts = _build_tree(A, np.asarray(coords), leaf)
-        nfr = len(fronts)
-        depth_of = np.array([f.depth for f in fronts])
-        parent = np.array([f.parent for f in fronts])
-
-        # boundaries bottom-up: bd(t) = (adj(sep t) U bd(children)) \ sep(t),
-        # then keep only strict-ancestor-owned nodes
-        owner = np.full(m, -1, np.int64)
-        for i, f in enumerate(fronts):
-            owner[f.sep] = i
-        order = sorted(range(nfr), key=lambda i: -depth_of[i])
-        bd_sets = [set() for _ in range(nfr)]
-        sub_up = [set() for _ in range(nfr)]
-        anc_cache: dict = {}
-
-        def ancestors(i):
-            if i not in anc_cache:
-                s = set()
-                j = parent[i]
-                while j >= 0:
-                    s.add(j)
-                    j = parent[j]
-                anc_cache[i] = s
-            return anc_cache[i]
-
-        for i in order:
-            f = fronts[i]
-            s = set()
-            if len(f.sep):
-                nbr = A.indices[
-                    np.concatenate(
-                        [
-                            np.arange(A.indptr[u], A.indptr[u + 1])
-                            for u in f.sep
-                        ]
-                    )
-                ] if len(f.sep) else np.empty(0, np.int64)
-                s.update(nbr.tolist())
-            s |= sub_up[i]
-            s -= set(f.sep.tolist())
-            anc = ancestors(i)
-            s = {u for u in s if owner[u] in anc}
-            bd_sets[i] = s
-            if parent[i] >= 0:
-                sub_up[parent[i]] |= s
-        for i, f in enumerate(fronts):
-            f.bd = np.fromiter(
-                sorted(bd_sets[i], key=lambda u: (depth_of[owner[u]], u)),
-                np.int64,
-                len(bd_sets[i]),
+    def _symbolic(self, idx, m, nf, coords, leaf):
+        """The construction, one telemetry span per part."""
+        with telemetry.span("nd.symbolic.pattern"):
+            idx = np.asarray(idx)
+            self.m, self.nf = int(m), int(nf)
+            keys = (
+                idx[:, :, None].astype(np.int64) * (m + 1) + idx[:, None, :]
+            ).reshape(-1)
+            uniq = np.unique(keys)
+            self.nuniq = len(uniq)
+            pi = uniq // (m + 1)
+            pj = uniq % (m + 1)
+            real = (pi < m) & (pj < m)
+            ii, jj = pi[real], pj[real]
+            off = ii != jj
+            A = sp.csr_matrix(
+                (np.ones(int(off.sum())), (ii[off], jj[off])), shape=(m, m)
             )
+            A = ((A + A.T) > 0).astype(np.int8).tocsr()
+        with telemetry.span("nd.symbolic.tree"):
+            fronts = _build_tree(A, np.asarray(coords), leaf)
+        with telemetry.span("nd.symbolic.boundary"):
+            nfr = len(fronts)
+            depth_of = np.array([f.depth for f in fronts])
+            parent = np.array([f.parent for f in fronts])
 
-        self.fronts = fronts
-        self.owner = owner
-        self.parent = parent
-        maxd = int(depth_of.max())
-        self.maxd = maxd
+            # boundaries bottom-up: bd(t) = (adj(sep t) U bd(children)) \ sep(t),
+            # then keep only strict-ancestor-owned nodes
+            owner = np.full(m, -1, np.int64)
+            for i, f in enumerate(fronts):
+                owner[f.sep] = i
+            order = sorted(range(nfr), key=lambda i: -depth_of[i])
+            bd_sets = [set() for _ in range(nfr)]
+            sub_up = [set() for _ in range(nfr)]
+            anc_cache: dict = {}
 
-        # -- grouping: the numeric phase batches fronts with identical
-        # padded shapes.  Base groups = tree depths; MGB_ND_BUCKET=1 (the
-        # default on every device: the JAX package's CPU grouping) splits
-        # each depth into front-size classes (F = sep+bd rounded up on a
-        # geometric grid), since per-depth shape padding costs cubically
-        # on the outlier front; MGB_ND_BUCKET=0 keeps one group per depth
-        # (the JAX accelerator grouping: fewer, larger batches).
-        # Ordering: groups ascend by (depth, class); the factorization
-        # walks them in reverse, and every extend-add target is a STRICT
-        # ancestor (smaller depth), so any within-depth class order is
-        # schedule-valid.
-        bucket = os.environ.get("MGB_ND_BUCKET", "1") == "1"
-        _grid = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
-                 768, 1024, 1536)
+            def ancestors(i):
+                if i not in anc_cache:
+                    s = set()
+                    j = parent[i]
+                    while j >= 0:
+                        s.add(j)
+                        j = parent[j]
+                    anc_cache[i] = s
+                return anc_cache[i]
 
-        def _fclass(F):
-            for gv in _grid:
-                if F <= gv:
-                    return gv
-            return int(F)
-
-        gmap: dict = {}
-        for i, f in enumerate(fronts):
-            kk = ((int(depth_of[i]), _fclass(len(f.sep) + len(f.bd))) if bucket
-                  else (int(depth_of[i]),))
-            gmap.setdefault(kk, []).append(i)
-        gkeys = sorted(gmap)
-        by_depth = [gmap[kk] for kk in gkeys]  # "by group"
-        self.by_depth = by_depth
-        self.ngroups = len(by_depth)
-        self.group_of = np.full(nfr, -1, np.int64)
-        for gi, ids in enumerate(by_depth):
-            self.group_of[ids] = gi
-        self.s_pad = [
-            max((len(fronts[i].sep) for i in ids), default=0) or 1
-            for ids in by_depth
-        ]
-        self.b_pad = [
-            max((len(fronts[i].bd) for i in ids), default=0)
-            for ids in by_depth
-        ]
-        self.local_id = np.full(nfr, -1, np.int64)
-        for ids in by_depth:
-            for k, i in enumerate(ids):
-                self.local_id[i] = k
-
-        # (front, node) -> padded slot lookup via sorted key array
-        slot_keys, slot_vals = [], []
-        for i, f in enumerate(fronts):
-            if len(f.sep):
-                slot_keys.append(np.int64(i) * m + f.sep)
-                slot_vals.append(np.arange(len(f.sep), dtype=np.int64))
-            if len(f.bd):
-                slot_keys.append(np.int64(i) * m + f.bd)
-                slot_vals.append(
-                    self.s_pad[self.group_of[i]]
-                    + np.arange(len(f.bd), dtype=np.int64)
+            for i in order:
+                f = fronts[i]
+                s = set()
+                if len(f.sep):
+                    nbr = A.indices[
+                        np.concatenate(
+                            [
+                                np.arange(A.indptr[u], A.indptr[u + 1])
+                                for u in f.sep
+                            ]
+                        )
+                    ] if len(f.sep) else np.empty(0, np.int64)
+                    s.update(nbr.tolist())
+                s |= sub_up[i]
+                s -= set(f.sep.tolist())
+                anc = ancestors(i)
+                s = {u for u in s if owner[u] in anc}
+                bd_sets[i] = s
+                if parent[i] >= 0:
+                    sub_up[parent[i]] |= s
+            for i, f in enumerate(fronts):
+                f.bd = np.fromiter(
+                    sorted(bd_sets[i], key=lambda u: (depth_of[owner[u]], u)),
+                    np.int64,
+                    len(bd_sets[i]),
                 )
-        self._slot_keys = np.concatenate(slot_keys)
-        so = np.argsort(self._slot_keys, kind="stable")
-        self._slot_keys = self._slot_keys[so]
-        self._slot_vals = np.concatenate(slot_vals)[so]
-        self.depth_of = depth_of
-        self._build_maps(pi, pj, real)
-        self._build_solve_maps()
-        self._build_sum_tables()
+
+            self.fronts = fronts
+            self.owner = owner
+            self.parent = parent
+            maxd = int(depth_of.max())
+            self.maxd = maxd
+
+            # -- grouping: the numeric phase batches fronts with identical
+            # padded shapes.  Base groups = tree depths; MGB_ND_BUCKET=1 (the
+            # default on every device: the JAX package's CPU grouping) splits
+            # each depth into front-size classes (F = sep+bd rounded up on a
+            # geometric grid), since per-depth shape padding costs cubically
+            # on the outlier front; MGB_ND_BUCKET=0 keeps one group per depth
+            # (the JAX accelerator grouping: fewer, larger batches).
+            # Ordering: groups ascend by (depth, class); the factorization
+            # walks them in reverse, and every extend-add target is a STRICT
+            # ancestor (smaller depth), so any within-depth class order is
+            # schedule-valid.
+            bucket = os.environ.get("MGB_ND_BUCKET", "1") == "1"
+            _grid = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
+                     768, 1024, 1536)
+
+            def _fclass(F):
+                for gv in _grid:
+                    if F <= gv:
+                        return gv
+                return int(F)
+
+            gmap: dict = {}
+            for i, f in enumerate(fronts):
+                kk = ((int(depth_of[i]), _fclass(len(f.sep) + len(f.bd))) if bucket
+                      else (int(depth_of[i]),))
+                gmap.setdefault(kk, []).append(i)
+            gkeys = sorted(gmap)
+            by_depth = [gmap[kk] for kk in gkeys]  # "by group"
+            self.by_depth = by_depth
+            self.ngroups = len(by_depth)
+            self.group_of = np.full(nfr, -1, np.int64)
+            for gi, ids in enumerate(by_depth):
+                self.group_of[ids] = gi
+            self.s_pad = [
+                max((len(fronts[i].sep) for i in ids), default=0) or 1
+                for ids in by_depth
+            ]
+            self.b_pad = [
+                max((len(fronts[i].bd) for i in ids), default=0)
+                for ids in by_depth
+            ]
+            self.local_id = np.full(nfr, -1, np.int64)
+            for ids in by_depth:
+                for k, i in enumerate(ids):
+                    self.local_id[i] = k
+
+            # (front, node) -> padded slot lookup via sorted key array
+            slot_keys, slot_vals = [], []
+            for i, f in enumerate(fronts):
+                if len(f.sep):
+                    slot_keys.append(np.int64(i) * m + f.sep)
+                    slot_vals.append(np.arange(len(f.sep), dtype=np.int64))
+                if len(f.bd):
+                    slot_keys.append(np.int64(i) * m + f.bd)
+                    slot_vals.append(
+                        self.s_pad[self.group_of[i]]
+                        + np.arange(len(f.bd), dtype=np.int64)
+                    )
+            self._slot_keys = np.concatenate(slot_keys)
+            so = np.argsort(self._slot_keys, kind="stable")
+            self._slot_keys = self._slot_keys[so]
+            self._slot_vals = np.concatenate(slot_vals)[so]
+            self.depth_of = depth_of
+        with telemetry.span("nd.symbolic.maps"):
+            self._build_maps(pi, pj, real)
+        with telemetry.span("nd.symbolic.solve_maps"):
+            self._build_solve_maps()
+        with telemetry.span("nd.symbolic.sum_tables"):
+            self._build_sum_tables()
 
     def _slots(self, front_ids: np.ndarray, nodes: np.ndarray) -> np.ndarray:
         pos = np.searchsorted(self._slot_keys, front_ids * self.m + nodes)

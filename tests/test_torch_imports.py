@@ -33,6 +33,7 @@ MODULES = [
     "multigridbarrier_tpu_torch.runtime.map_rows",
     "multigridbarrier_tpu_torch.runtime.native",
     "multigridbarrier_tpu_torch.runtime.ops",
+    "multigridbarrier_tpu_torch.runtime.telemetry",
     "multigridbarrier_tpu_torch.solver.amgb",
     "multigridbarrier_tpu_torch.solver.convex",
     "multigridbarrier_tpu_torch.solver.hostsolve",

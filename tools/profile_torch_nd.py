@@ -29,11 +29,10 @@ start point at t = 0.1, the first barrier parameter of amgb:
      TablePlan runs what its Newton step ran instead: he_assemble on a
      given W, table_sum, and element_matvec + table_sum.
 
-It prints the card line, the seconds per step of (2), the times of (3),
-then for (4) the device busy time per step and the idle share of the
-profiled wall (1 - summed kernel time / wall; the port runs on one
-stream, so kernels do not overlap), the CUDA kernels launched per step
-split into the port's own kernels, elementwise kernels, cuBLAS/cuSOLVER
+It prints the card line, the first step's seconds (with the symbolic
+phase's nd.symbolic span where the checkout has runtime/telemetry.py), the
+seconds per step of (2), the times of (3), then for (4) the profiled wall
+per step, the CUDA kernels launched per step split into the port's own kernels, elementwise kernels, cuBLAS/cuSOLVER
 kernels and the rest, the device time by kernel name (top 25, and the
 port's own kernels below them) and by the PyTorch operator that launched
 it (top 20), and the port's own kernel launches per step (runtime/cuda_kernels.LAUNCHES).  With --solve it first
@@ -314,11 +313,20 @@ def main() -> int:
     if level not in ctx._nd_route:
         raise RuntimeError(f"fem2d L={args.L}: the fine level does not take the ND route")
 
+    try:
+        tm = importlib.import_module("multigridbarrier_tpu_torch.runtime.telemetry")
+        tm.enable()
+    except ImportError:  # a checkout from before the telemetry module
+        tm = None
     t0 = time.perf_counter()
     z, *_ = ctx.step(level, z, t)
     torch.cuda.synchronize()
-    print(f"first step (symbolic build {ctx.nd[level].symbolic_s:.3f}s included): "
-          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    wall = time.perf_counter() - t0
+    sym = "" if tm is None else " (symbolic build {:.3f}s included)".format(
+        sum(b - a for _, a, b in tm.spans("nd.symbolic")) / 1e9)
+    if tm is not None:
+        tm.disable()
+    print(f"first step{sym}: {wall:.3f}s", flush=True)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -349,9 +357,7 @@ def main() -> int:
             by_kernel[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
     busy_us = sum(us for us, _ in by_kernel.values())
     n_kernels = sum(cnt for _, cnt in by_kernel.values())
-    print(f"profiled: wall {wall * 1e3 / n:.3f} ms per step, device busy "
-          f"{busy_us / 1e3 / n:.3f} ms per step, idle share "
-          f"{1.0 - busy_us / 1e6 / wall:.4f}, CUDA kernels per step "
+    print(f"profiled: wall {wall * 1e3 / n:.3f} ms per step, CUDA kernels per step "
           f"{n_kernels / n:.1f}", flush=True)
     kinds = {}
     for name, (_, cnt) in by_kernel.items():

@@ -10,7 +10,8 @@ Builds fem3d(L, k) on the default backend (the GPU, float64) and
   1. unless --no-solve, solves fem3d_solve's problem (amgb, p=1) --repeat
      times on one geometry; per solve one line with c_dot_Dz (repr), its, the
      wall (host clock, ending in a synchronize; the first run includes the
-     level set-up), the nested-dissection symbolic seconds per level, peak
+     level set-up), the nested-dissection symbolic seconds of the levels it
+     built (runtime/telemetry's nd.symbolic spans, on for these solves), peak
      device memory, the largest ||grad u|| - s, and the kernel launches;
   2. with --steps N > 0, runs N Newton steps of the finest level from the
      default start at t = 0.1 on the host clock, then N more under
@@ -90,6 +91,9 @@ def per_call_us(label, fn, marks, reps=20):
 
 
 def solve_runs(mt, ck, g, repeat):
+    from multigridbarrier_tpu_torch.runtime import telemetry
+
+    telemetry.enable()
     for run in range(1, repeat + 1):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -101,8 +105,8 @@ def solve_runs(mt, ck, g, repeat):
         z = sol.z
         du = torch.stack([g.operators[d].matvec(z[:, 0]) for d in ("dx", "dy", "dz")], dim=1)
         worst = float((torch.linalg.norm(du, dim=1) - z[:, 1]).max())
-        nd = {lvl: round(n.symbolic_s, 3) for ctx in g.ctx_cache.values()
-              for lvl, n in sorted(ctx.nd.items())}
+        nd = [round((b - a) / 1e9, 3) for _, a, b in telemetry.spans("nd.symbolic")]
+        telemetry.SPANS.clear()
         d = g.discretization
         print(f"solve fem3d L={d.L} k={d.payload['k']} run {run}: "
               f"c_dot_Dz={float(sol.SOL_main.c_dot_Dz[-1])!r} its={sol.SOL_main.its.tolist()} "
@@ -110,6 +114,7 @@ def solve_runs(mt, ck, g, repeat):
               f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f} "
               f"max(|grad u| - s)={worst:.3e} "
               f"launches={ {k: v for k, v in ck.LAUNCHES.items() if v} }", flush=True)
+    telemetry.disable()
 
 
 def profile_steps(ck, amgb_mod, g, steps):

@@ -6,13 +6,15 @@ by part, in the PyTorch port and in the JAX package, on the same level.
 
 Both classes get the same input: the fine level of the port's geometry
 (built on the CPU) and its node coordinates.  The parts: the pattern (the
-unique pair keys and the node graph), _build_tree, the boundary loop with
-the grouping and slot tables (everything between the tree and the maps),
-_build_maps, _build_solve_maps, the port's _build_sum_tables and its relay
-maps (NDSymbolic.relay_in, built on first use; the JAX package builds the
-same maps inside _build_maps).  Each part is timed by wrapping the
-function that does it; the pattern and the boundary loop are the time
-between them.  Runs on the CPU; prints one line per package and repeat.
+unique pair keys and the node graph), the tree (_build_tree), the boundary
+loop with the grouping and slot tables (everything between the tree and the
+maps), the maps (_build_maps), the solve maps (_build_solve_maps), the
+port's sum tables (_build_sum_tables) and its relay maps
+(NDSymbolic.relay_in, built on first use; the JAX package builds the same
+maps inside _build_maps).  The port's parts are its own nd.symbolic.* spans
+(runtime/telemetry); the JAX package's are timed by wrapping the functions
+that do them, the pattern and the boundary loop being the time between
+them.  Runs on the CPU; prints one line per package and repeat.
 """
 
 import argparse
@@ -28,8 +30,7 @@ def timed(module, cls, stamps):
     records (name, start, end) into stamps; returns an undo function."""
     saved = [(module, "_build_tree", module._build_tree)]
     saved += [(cls, name, getattr(cls, name))
-              for name in ("_build_maps", "_build_solve_maps", "_build_sum_tables")
-              if hasattr(cls, name)]
+              for name in ("_build_maps", "_build_solve_maps") if hasattr(cls, name)]
 
     def wrap(name, fn):
         def inner(*args, **kw):
@@ -48,7 +49,7 @@ def timed(module, cls, stamps):
     return undo
 
 
-def parts(module, idx, m, nf, coords):
+def jax_parts(module, idx, m, nf, coords):
     stamps = []
     undo = timed(module, module.NDSymbolic, stamps)
     try:
@@ -59,16 +60,30 @@ def parts(module, idx, m, nf, coords):
         undo()
     at = {name: (a, b) for name, a, b in stamps}
     out = {"pattern": at["_build_tree"][0] - t0,
-           "_build_tree": at["_build_tree"][1] - at["_build_tree"][0],
-           "boundary loop + grouping": at["_build_maps"][0] - at["_build_tree"][1]}
-    for name in ("_build_maps", "_build_solve_maps", "_build_sum_tables"):
-        if name in at:
-            out[name] = at[name][1] - at[name][0]
-    out["total"] = t1 - t0
-    if module.__name__.startswith("multigridbarrier_tpu_torch"):
-        t2 = time.perf_counter()
-        sym.relay_in
-        out["relay_in (on first use)"] = time.perf_counter() - t2
+           "tree": at["_build_tree"][1] - at["_build_tree"][0],
+           "boundary": at["_build_maps"][0] - at["_build_tree"][1],
+           "maps": at["_build_maps"][1] - at["_build_maps"][0],
+           "solve_maps": at["_build_solve_maps"][1] - at["_build_solve_maps"][0],
+           "total": t1 - t0}
+    return sym, out
+
+
+def port_parts(module, idx, m, nf, coords):
+    from multigridbarrier_tpu_torch.runtime import telemetry
+
+    telemetry.SPANS.clear()
+    telemetry.enable()
+    try:
+        sym = module.NDSymbolic(idx, m, nf, coords)
+    finally:
+        telemetry.disable()
+    spans = {name: (b - a) / 1e9 for name, a, b in telemetry.spans()}
+    telemetry.SPANS.clear()
+    out = {k.rpartition(".")[2]: v for k, v in spans.items() if k.startswith("nd.symbolic.")}
+    out["total"] = spans["nd.symbolic"]
+    t2 = time.perf_counter()
+    sym.relay_in
+    out["relay_in (on first use)"] = time.perf_counter() - t2
     return sym, out
 
 
@@ -98,7 +113,7 @@ def main() -> int:
     from multigridbarrier_tpu.solver import ndsolve as jnd
 
     for rep in range(args.repeat):
-        for name, module in (("port", tnd), ("jax", jnd)):
+        for name, module, parts in (("port", tnd, port_parts), ("jax", jnd, jax_parts)):
             sym, out = parts(module, idx, m, 2, coords)
             print(f"{name} NDSymbolic (repeat {rep + 1}): {sym.ngroups} groups; seconds "
                   + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
