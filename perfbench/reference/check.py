@@ -36,7 +36,12 @@ harness):
 
 The decrement's system is factored densely (torch Cholesky of the matrix
 scaled to a unit diagonal) on the device it is given: one factor a judged
-iterate.  At 1/tol the matrix spans some 1e18 in scale (the cone's
+iterate.  Where the dense matrix would take more than a quarter of the
+card's memory (fem2d L=8: 130,050 dofs, 135 GB), the same matrix is
+numbered node by node with the fields interleaved, which makes it a band
+(half-bandwidth 1,025 at fem2d L=8), and factored as a block tridiagonal
+matrix of blocks wider than the band, block by block, with the same
+scaling and the same shifts.  At 1/tol the matrix spans some 1e18 in scale (the cone's
 margins in the flat parts of the solution are ~1e-16) and rounds to
 indefinite: the factor takes the least shift of the unit diagonal, from
 1e-15 up by tens, that it accepts; a shift only lowers the decrement.
@@ -71,11 +76,24 @@ def default_problem(dim: int, cost, start, tol: float) -> Problem:
     return Problem(rows, 2, list(range(1, dim + 2)), cost, start, tol)
 
 
-class Judge:
-    """The mesh, the problem and the dense Newton system's index maps, on
-    one device, built once per run and applied to every solve."""
+def dense_fits(n: int, dtype, device) -> bool:
+    """Whether the dense n x n Hessian takes at most a quarter of the card's
+    memory (on the CPU: always; the CPU judges only test sizes)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    card = torch.cuda.get_device_properties(device).total_memory
+    return n * n * torch.finfo(dtype).bits // 8 <= card // 4
 
-    def __init__(self, mesh: Mesh, prob: Problem, device="cpu", dtype=torch.float64):
+
+class Judge:
+    """The mesh, the problem and the Newton system's index maps, on one
+    device, built once per run and applied to every solve.  band: factor
+    the system as a band (True), densely (False), or densely where that
+    fits a quarter of the card (None)."""
+
+    def __init__(self, mesh: Mesh, prob: Problem, device="cpu", dtype=torch.float64,
+                 band=None):
         self.mesh, self.prob, self.dev = mesh, prob, torch.device(device)
         dt = self.dtype = dtype
         T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=self.dev)  # noqa: E731
@@ -102,6 +120,17 @@ class Judge:
         edf = np.concatenate([np.where(ed >= 0, ed + f * self.ndof, -1) for f in range(nf)], axis=1)
         self.edof = torch.as_tensor(edf, device=self.dev)  # (ne, nf*nl), -1 on the boundary
         self.N = nf * self.ndof
+        self.band = not dense_fits(self.N, dt, self.dev) if band is None else bool(band)
+        if self.band:
+            # the same dofs numbered node by node, the fields interleaved: the
+            # nodes are in coordinate order, so an element's dofs lie close
+            ebf = np.concatenate([np.where(ed >= 0, ed * nf + f, -1) for f in range(nf)], axis=1)
+            keep = ebf >= 0
+            hi = np.where(keep, ebf, -1).max(axis=1)
+            lo = np.where(keep, ebf, self.N).min(axis=1)
+            self.B = int((hi - lo)[keep.any(axis=1)].max()) + 1  # block size > half-bandwidth
+            self.nb = -(-self.N // self.B)
+            self.ebdof = torch.as_tensor(ebf, device=self.dev)
 
     # -- pointwise -----------------------------------------------------------
 
@@ -189,17 +218,23 @@ class Judge:
         ve = ve.reshape(self.ne, self.nf, self.nl)
         return torch.einsum("qa,efa->eqf", interp, ve).reshape(-1, self.nf)
 
-    def system(self, y, t, m=None):
-        """The gradient g (N,) and the dense Hessian H (N, N) of
-        t J + sum w F at y, over the dofs of V (m: the margins, as in
-        barrier_derivs)."""
+    def _elements(self, y, t, m=None):
+        """The element gradients (ne, nf*nl) and Hessians (ne, nf*nl, nf*nl)
+        of t J + sum w F at y (m: the margins, as in barrier_derivs)."""
         F1, F2 = self.barrier_derivs(y, m)
         w = self.w
         ge = torch.einsum("eqj,eqjc->ec",
                           (w[:, None] * (t * self.c + F1)).reshape(self.ne, self.nq, self.k), self.P)
-        g = self._scatter(ge)
         WF = (w[:, None, None] * F2).reshape(self.ne, self.nq, self.k, self.k)
         He = torch.einsum("eqjc,eqjl,eqld->ecd", self.P, WF, self.P)
+        return ge, He
+
+    def system(self, y, t, m=None):
+        """The gradient g (N,) and the dense Hessian H (N, N) of
+        t J + sum w F at y, over the dofs of V (m: the margins, as in
+        barrier_derivs)."""
+        ge, He = self._elements(y, t, m)
+        g = self._scatter(ge)
         keep = self.edof >= 0
         C = self.edof.shape[1]
         pair = keep[:, :, None] & keep[:, None, :]
@@ -232,6 +267,8 @@ class Judge:
     def decrement2(self, y, t, m=None):
         """(g^T H^{-1} g of t J + sum w F at y over the dofs of V, the
         diagonal shift the factor took)."""
+        if self.band:
+            return self.band_decrement2(y, t, m)
         g, H = self.system(y, t, m)
         Lc, dsc, shift = self.factor(H)
         del H
@@ -239,6 +276,82 @@ class Judge:
             return float("inf"), shift
         u = torch.linalg.solve_triangular(Lc, (g * dsc)[:, None], upper=False)
         return float((u * u).sum()), shift
+
+    # -- the same system as a band, for an N whose dense matrix does not fit --
+
+    def band_system(self, y, t, m=None):
+        """g (N,) in the interleaved numbering, and H in it as a block
+        tridiagonal matrix of nb blocks of B: diagonal blocks D (nb, B, B),
+        sub-diagonal blocks E (nb, B, B), E[i] the rows of block i + 1 and
+        the columns of block i.  The dofs past N that fill the last block
+        take a unit diagonal and nothing else."""
+        ge, He = self._elements(y, t, m)
+        B, nb, C = self.B, self.nb, self.ebdof.shape[1]
+        keep = self.ebdof >= 0
+        g = torch.zeros(nb * B, dtype=y.dtype, device=self.dev)
+        g.index_add_(0, self.ebdof[keep], ge[keep])
+        pair = keep[:, :, None] & keep[:, None, :]
+        r = self.ebdof[:, :, None].expand(-1, C, C)[pair]
+        c = self.ebdof[:, None, :].expand(-1, C, C)[pair]
+        v = He[pair]
+        br, bc = r // B, c // B
+        at = (r % B) * B + c % B
+        D = torch.zeros(nb * B * B, dtype=y.dtype, device=self.dev)
+        E = torch.zeros(nb * B * B, dtype=y.dtype, device=self.dev)
+        on, low = br == bc, br == bc + 1
+        D.index_add_(0, bc[on] * B * B + at[on], v[on])
+        E.index_add_(0, bc[low] * B * B + at[low], v[low])
+        D, E = D.view(nb, B, B), E.view(nb, B, B)
+        pad = torch.arange(self.N, nb * B, device=self.dev)
+        D.view(nb * B, B)[pad, pad % B] = 1.0
+        return g, D, E
+
+    def band_factor(self, D, E):
+        """D and E scaled in place to a unit diagonal and their block
+        Cholesky factor (L_i, and M_i = E_i L_i^-T below it), with the least
+        shift of that diagonal, from five roundings up by tens, under which
+        every diagonal block factors: (factor or None, scale, shift)."""
+        fi = torch.finfo(D.dtype)
+        nb, B = D.shape[0], D.shape[1]
+        dsc = D.diagonal(dim1=1, dim2=2).abs().clamp_min(fi.tiny).rsqrt()  # (nb, B)
+        D.mul_(dsc[:, :, None]).mul_(dsc[:, None, :])
+        E[:-1].mul_(dsc[1:, :, None]).mul_(dsc[:-1, None, :])
+        eye = torch.eye(B, dtype=D.dtype, device=D.device)
+        first = float(f"{5 * fi.eps:.0e}")
+        shift = first
+        while True:
+            Ls, Ms = [], []
+            S = D[0] + shift * eye
+            for i in range(nb):
+                Li, info = torch.linalg.cholesky_ex(S)
+                if int(info) != 0:
+                    break
+                Ls.append(Li)
+                if i + 1 < nb:
+                    Mi = torch.linalg.solve_triangular(Li, E[i].T, upper=False).T
+                    Ms.append(Mi)
+                    S = D[i + 1] + shift * eye - Mi @ Mi.T
+            else:
+                return (Ls, Ms), dsc.reshape(-1), shift
+            if shift >= 1e4 * first:
+                return None, dsc.reshape(-1), shift
+            shift *= 10
+
+    def band_decrement2(self, y, t, m=None):
+        """decrement2 through the block tridiagonal factor."""
+        g, D, E = self.band_system(y, t, m)
+        fac, dsc, shift = self.band_factor(D, E)
+        del D, E
+        if fac is None:
+            return float("inf"), shift
+        Ls, Ms = fac
+        b = (g * dsc).view(self.nb, self.B, 1)
+        parts, u = [], None
+        for i, Li in enumerate(Ls):
+            r = b[i] if u is None else b[i] - Ms[i - 1] @ u
+            u = torch.linalg.solve_triangular(Li, r, upper=False)
+            parts.append((u * u).sum())
+        return float(torch.stack(parts).sum()), shift
 
     # -- the judgement -----------------------------------------------------------
 

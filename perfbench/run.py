@@ -28,11 +28,21 @@ Check: every timed solve's iterate and reported objective, judged by the
 plain reference (reference/) once the window has closed, the memory peak
 has been read and the program's state is freed.
 
+A cell whose configuration states ranks > 1 (and whose chips equal them)
+runs as one process a card (ranks.py, run_mesh): every rank runs the
+set-up, the window and the solves above on a mesh of them, in step (a
+barrier at the window's start and end, rank 0's decision whether the next
+solve starts); rank 0 judges, and counts the ranks whose iterate or
+objective differs from its own in any bit (ranks_agree).  The launching
+process prints.
+
 The last line of standard output is one JSON object: correct, attempted,
 failed, metrics, device, with --trace 1 breakdown, and last the compared
 numbers with their limits (checks), which also close standard error.
 Exit 2: no card, fewer cards than the cell asks for, no port in the
-checkout, or no such cell; exit 3: the JAX package or JAX was loaded.
+checkout, no such cell, or a cell whose chips differ from its
+configuration's ranks; exit 1: a rank of a mesh cell failed; exit 3: the
+JAX package or JAX was loaded.
 
 Not part of the benchmark's runs: --calibrate s1,s2,... runs the set-up
 once, then one solve and its check per seed, a JSON line each; with
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import math
 import os
@@ -78,7 +89,7 @@ for _var, _sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "tor
                    ("CUDA_CACHE_PATH", "nv")):
     os.environ[_var] = str(ROOT / "build" / "perfbench-cache" / _sub)
 
-from perfbench import data, spec  # noqa: E402
+from perfbench import data, port_counters, spec  # noqa: E402
 from perfbench import trace as trace_mod  # noqa: E402
 from perfbench.reference import check as ref_check  # noqa: E402
 from perfbench.reference import mesh as ref_mesh  # noqa: E402
@@ -123,14 +134,44 @@ def _phase(log):
     return {k: (v.tolist() if hasattr(v, "tolist") else v) for k, v in vars(log).items()}
 
 
+def _collective_counts():
+    """The port's collectives so far and the bytes they brought this rank
+    (runtime/dist's counters, handed out by telemetry.snapshot()); (0, 0)
+    where the port keeps no such counters."""
+    tm = sys.modules.get(port_counters.MODULE)
+    if tm is None or not hasattr(tm, "snapshot"):
+        return 0, 0
+    snap = tm.snapshot()
+    return sum(snap["COLLECTIVES"].values()), sum(snap["BYTES"].values())
+
+
+def _digest(s) -> str:
+    """The bits of a solve's iterate and reported objective (or its error)."""
+    h = hashlib.sha256(repr((s["err"], s.get("obj"))).encode())
+    z = s.get("z")
+    if z is not None:
+        h.update(repr((tuple(z.shape), str(z.dtype))).encode())
+        h.update(z.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, device: str = "cuda",
-            control=None, seeds=None, cuts=(1,)) -> dict:
+            control=None, seeds=None, cuts=(1,), ranks=None) -> dict:
     """Set-up, window and check of one run; returns the record the metric
     readers take and the check's readings.  Solve i of the window (and the
     warm-up, on solve 0's data) solves data.draw(seed, i), but with trace
     solve 1 solves solve 0's data again and solve i > 1 data i - 1; with
     seeds (a calibration), the window is one solve of data.draw(s, 0) for
-    each seed s, once for each k of cuts with tol times k."""
+    each seed s, once for each k of cuts with tol times k.
+
+    ranks (a ranks.Rank) runs this as one rank of a mesh over every rank of
+    the process group: the backend on that mesh, the window's start and end
+    at a barrier, rank 0's decision whether the next solve starts on every
+    rank, the memory peaks the largest and the device's busy time the mean
+    over the ranks, the set-up time on the launching process's clock.  Rank
+    0 alone judges, and holds every rank's iterate and objective to its own
+    bit for bit (ranks_agree); the other ranks return None once the window
+    has closed."""
     import torch
 
     cfg, tr = cell.config, cell.traffic
@@ -144,12 +185,18 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     dtype = getattr(torch, control or cfg["dtype"])
     opts = {**cfg.get("backend", {}), **tr.get("route", {})}
-    backend = (mt.backend_cuda(dtype=dtype, device=dev, **opts) if on_card
-               else mt.backend_cpu(dtype=dtype, **opts))
+    if ranks is None:
+        backend = (mt.backend_cuda(dtype=dtype, device=dev, **opts) if on_card
+                   else mt.backend_cpu(dtype=dtype, **opts))
+    else:
+        backend = (mt.backend_cuda(dtype=dtype, n_devices=ranks.world, **opts) if on_card
+                   else mt.backend_cpu(dtype=dtype, mesh=mt.make_mesh(ranks.world, "cpu"), **opts))
+        dev = backend.device
     dim = ref_mesh.DIM[cfg["family"]]
     tracer = trace_mod.Tracer() if trace else None
     prof = None
     solves = []
+    phases = {}  # host seconds of the run's parts after set-up, for the log
     try:
         if tracer:
             tracer.install()
@@ -183,8 +230,11 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
         peak_setup = torch.cuda.max_memory_allocated(dev) if on_card else 0
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
+        if ranks is not None:
+            ranks.barrier()
         t_win = time.perf_counter()
-        setup_s = _STARTUP + (t_win - _T0)
+        setup_s = (_STARTUP + (t_win - _T0) if ranks is None
+                   else ranks.startup + (t_win - ranks.t0))
         while True:
             i = len(solves)
             d, cut = plan[i] if plan else ((max(i - 1, 0), 1) if tracer else (i, 1))
@@ -199,6 +249,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
                 prof.__enter__()
                 tracer.profiling = True
             kwi = kw if cut == 1 else dict(kw, tol=cut * (kw.get("tol") or _default_tol(dtype)))
+            n0, b0 = _collective_counts()
             t0 = time.perf_counter()
             try:
                 sol, err = mt.amgb(geometry, f=f, g=g, **kwi), None
@@ -209,9 +260,12 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
             if prof is not None and i == 0:
                 tracer.profiling = False
                 prof.__exit__(None, None, None)
+                phases["profiler_exit_s"] = time.perf_counter() - t1
             if tracer:
                 tracer.timing = False
-            rec = dict(start=t0, end=t1, wall=t1 - t0, err=err, data=d, cut=cut)
+            n1, b1 = _collective_counts()
+            rec = dict(start=t0, end=t1, wall=t1 - t0, err=err, data=d, cut=cut,
+                       collectives=n1 - n0, collective_bytes=b1 - b0)
             if sol is not None:
                 rec.update(z=sol.z.detach(), obj=float(sol.SOL_main.c_dot_Dz[-1]),
                            its=int(sol.SOL_main.its.sum() + (sol.SOL_feasibility.its.sum()
@@ -220,26 +274,51 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
             solves.append(rec)
             del sol
             if plan:
-                if len(solves) >= len(plan):
-                    break
+                stop = len(solves) >= len(plan)
             elif tracer and i == 0:
-                continue  # the profiled solve's unprofiled repeat always runs
-            elif (t1 - t_win) + (t1 - t0) > seconds:
+                stop = False  # the profiled solve's unprofiled repeat always runs
+            else:
+                stop = (t1 - t_win) + (t1 - t0) > seconds
+            if ranks is not None:
+                stop = ranks.decide(stop)
+            if stop:
                 break
+        if ranks is not None:
+            ranks.barrier()
         peak_window = torch.cuda.max_memory_allocated(dev) if on_card else 0
     finally:
         if tracer:
             tracer.uninstall()
     kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
     profile = None
+    t = time.perf_counter()
     if prof is not None:
-        profile = trace_mod.reduce(prof.profiler.kineto_results.events(), tracer, kind,
-                                   solves[0]["wall"])
+        collecting = gc.isenabled()
+        gc.disable()  # millions of event tuples: no collector passes over them
+        try:
+            profile = trace_mod.reduce(prof.profiler.kineto_results.events(), tracer, kind,
+                                       solves[0]["wall"])
+        finally:
+            if collecting:
+                gc.enable()
         del prof
+        phases["reduce_s"] = time.perf_counter() - t
     del geometry, fns, f, g
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    ranks_busy_s, differ = None, None
+    if ranks is not None:
+        mine = dict(peaks=(peak_setup, peak_window), digests=[_digest(s) for s in solves],
+                    busy_s=profile["busy_s"] if profile else None, forbidden=forbidden_loaded())
+        every = ranks.gather(mine)
+        if ranks.rank != 0:
+            return None
+        peak_setup = max(o["peaks"][0] for o in every)
+        peak_window = max(o["peaks"][1] for o in every)
+        ranks_busy_s = [o["busy_s"] for o in every] if profile else None
+        differ = [sum(len(o["digests"]) != len(solves) or o["digests"][j] != mine["digests"][j]
+                      for o in every[1:]) for j in range(len(solves))]
 
     # each solve's log as host values: phase logs and the per-step log
     for s in solves:
@@ -247,14 +326,18 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
         s.update(sol_feasibility=_phase(feas), sol_main=_phase(main), log=steps)
     # the check, on the card, after the program's state is gone
     limits = cell.limits()
-    for s in solves:
+    t = time.perf_counter()
+    for j, s in enumerate(solves):
         z = s.pop("z", None)
         if s["err"] is not None:
             s["check"], s["ok"] = None, False
             continue
         s["check"] = _judge(cfg, coefs[s["data"]], dev).judge(z, s["obj"])
+        if differ is not None:
+            s["check"]["ranks_agree"] = differ[j]
         s["ok"] = all(s["check"][n] <= lim for n, lim in limits.items())
         del z
+    phases["judge_s"] = time.perf_counter() - t
     worst = {n: max((s["check"][n] for s in solves if s["check"]), default=math.inf)
              for n in limits}
     if any(s["err"] for s in solves):
@@ -269,9 +352,11 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
             base_wall_s=(solves[1]["wall"] if tracer and len(solves) > 1
                          and solves[1].get("its") == solves[0].get("its") else None),
             spans={k: list(v) for k, v in tracer.spans.items()} if tracer else {},
-            profile=profile, peak_window_bytes=peak_window),
+            profile=profile, peak_window_bytes=peak_window, ranks_busy_s=ranks_busy_s,
+            phases=phases),
         device=dict(platform="gpu" if on_card else "cpu", kind=kind,
                     count=cell.chips, memory_peak_bytes=int(max(peak_setup, peak_window))),
+        forbidden=sorted({m for o in every for m in o["forbidden"]}) if ranks is not None else [],
     )
 
 
@@ -293,7 +378,8 @@ def result_line(cell: spec.Cell, out: dict, trace: bool) -> dict:
     line = dict(correct=out["correct"], attempted=out["attempted"], failed=out["failed"],
                 metrics=metrics, device=device)
     if trace and rec.profile is not None:
-        device.update(busy_s=rec.profile["busy_s"], window_s=rec.profile["wall_s"])
+        busy = rec.ranks_busy_s or [rec.profile["busy_s"]]  # the mean over the ranks
+        device.update(busy_s=sum(busy) / len(busy), window_s=rec.profile["wall_s"])
         line["breakdown"] = dict(device_ops=rec.profile["device_ops"],
                                  idle_gaps=rec.profile["idle_gaps"])
     line["checks"] = {n: {"value": _num(out["worst"][n]), "limit": lim}
@@ -304,6 +390,41 @@ def result_line(cell: spec.Cell, out: dict, trace: bool) -> dict:
 def _num(v):
     """JSON has no infinity: a reading that never came is 1e308."""
     return v if math.isfinite(v) else 1e308
+
+
+def report(cell: spec.Cell, out: dict, trace: bool, seeds=None) -> dict:
+    """What the printing process takes from a run: with seeds (a
+    calibration), one row per solve; else the result line and each solve's
+    wall, Newton iterations and error.  Plain values only."""
+    solves, forbidden = out["rec"].solves, out["forbidden"]
+    if seeds:
+        return dict(rows=[dict(seed=seeds[s["data"]], cut=s["cut"], wall=s["wall"],
+                               its=s.get("its"), err=s["err"], ok=s["ok"], check=s["check"])
+                          for s in solves], forbidden=forbidden)
+    return dict(line=result_line(cell, out, trace), phases=out["rec"].phases, forbidden=forbidden,
+                solves=[(s["wall"], s.get("its"), s["err"]) for s in solves])
+
+
+def _rank_job(rank, cell, seed, seconds, trace, control, seeds, cuts, device):
+    """One rank's run of a mesh cell; rank 0's report, None elsewhere."""
+    out = measure(cell, seed, seconds, trace=trace, device=device, control=control, seeds=seeds,
+                  cuts=cuts, ranks=rank)
+    return None if out is None else report(cell, out, trace, seeds)
+
+
+def run_mesh(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, device: str = "cuda",
+             control=None, seeds=None, cuts=(1,), pg_backend: str = "nccl") -> dict:
+    """The run of a cell on cell.chips ranks, one process each (ranks.py),
+    launched from this process; rank 0's report."""
+    from perfbench import ranks
+
+    if device == "cuda":
+        from multigridbarrier_tpu_torch.runtime import cuda_kernels
+
+        cuda_kernels.build()  # once, before the ranks load it
+    return ranks.launch(_rank_job, cell.chips, pg_backend, device,
+                        args=(cell, seed, seconds, trace, control, seeds, tuple(cuts), device),
+                        clock=(_STARTUP, _T0))
 
 
 def _parse(argv):
@@ -325,6 +446,11 @@ def main(argv=None) -> int:
     except (KeyError, OSError, ValueError) as exc:
         print(f"perfbench: {exc}", file=sys.stderr)
         return 2
+    ranks = int(cell.config.get("ranks", 1))
+    if ranks != cell.chips:
+        print(f"perfbench: {args.workload} asks for {cell.chips} chip(s), its configuration "
+              f"states {ranks} rank(s), one a card", file=sys.stderr)
+        return 2
     import torch
 
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -337,28 +463,38 @@ def main(argv=None) -> int:
     except ImportError as exc:
         print(f"perfbench: the port is not in this checkout: {exc}", file=sys.stderr)
         return 2
-    if args.calibrate:
-        seeds = [int(s) for s in args.calibrate.split(",")]
-        cuts = [float(k) for k in args.cut.split(",")]
-        out = measure(cell, seeds[0], math.inf, device="cuda", control=args.control, seeds=seeds,
-                      cuts=cuts)
-        for s in out["rec"].solves:
-            print(json.dumps(dict(seed=seeds[s["data"]], cut=s["cut"], wall=s["wall"], its=s.get("its"),
-                                  err=s["err"], ok=s["ok"], check=s["check"])), flush=True)
-        bad = forbidden_loaded()
+    seeds = [int(s) for s in args.calibrate.split(",")] if args.calibrate else None
+    cuts = [float(k) for k in args.cut.split(",")] if seeds else [1]
+    kw = dict(trace=bool(args.trace) and not seeds, control=args.control, seeds=seeds, cuts=cuts)
+    seed, seconds = (seeds[0], math.inf) if seeds else (args.seed, args.seconds)
+    if cell.chips == 1:
+        rep = report(cell, measure(cell, seed, seconds, device="cuda", **kw), kw["trace"], seeds)
+    else:
+        pg = cell.config.get("process_group", "nccl")
+        try:
+            rep = run_mesh(cell, seed, seconds, pg_backend=pg, **kw)
+        except Exception as exc:  # a rank raised or died: every rank has ended
+            print(f"perfbench: a rank of {args.workload} failed, the run has no result:\n{exc}",
+                  file=sys.stderr)
+            return 1
+        if not seeds:
+            rep["line"]["device"]["process_group"] = pg
+    bad = sorted(set(forbidden_loaded()) | set(rep["forbidden"]))
+    if seeds:
+        for row in rep["rows"]:
+            print(json.dumps(row), flush=True)
         if bad:
             print(f"perfbench: loaded {bad}", file=sys.stderr)
             return 3
         return 0
-    out = measure(cell, args.seed, args.seconds, trace=bool(args.trace), control=args.control)
-    bad = forbidden_loaded()
     if bad:
         print(f"perfbench: the run loaded {bad}, which the benchmark must not load",
               file=sys.stderr)
         return 3
-    line = result_line(cell, out, bool(args.trace))
-    for i, s in enumerate(out["rec"].solves):
-        print(f"solve {i} wall {s['wall']!r} its {s.get('its')} {s['err'] or ''}", file=sys.stderr)
+    line = rep["line"]
+    for i, (wall, its, err) in enumerate(rep["solves"]):
+        print(f"solve {i} wall {wall!r} its {its} {err or ''}", file=sys.stderr)
+    print("phases " + " ".join(f"{k} {v:.2f}" for k, v in rep["phases"].items()), file=sys.stderr)
     for name, c in line["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(line), flush=True)
