@@ -17,6 +17,10 @@ averages.
 
 The published data are the solver's defaults: f = [1/2, 0, ..., 0, 1] and
 g = [|x|^2, 100].
+
+A time stepper (parabolic_solve) takes the source f1 and the initial u of
+the same draw: f1(x) = f[0] (1 + amp_cost phi_0(x)) and u0 = g's u; its other
+cost rows and its slacks' start are its own.
 """
 
 from __future__ import annotations
@@ -69,6 +73,11 @@ def start_np(c: Coefficients, x: np.ndarray) -> np.ndarray:
     return np.stack([(x * x).sum(axis=1) + c.amp_g * phi[2], np.full(x.shape[0], c.s0)], axis=1)
 
 
+def source_np(c: Coefficients, x: np.ndarray) -> np.ndarray:
+    """The time stepper's source f1 (n,): the u cost row of cost_np."""
+    return c.f0[0] * (1.0 + c.amp_cost * _phi_np(c, x)[0])
+
+
 def torch_callables(c: Coefficients, dtype, device):
     """(f, g) for amgb: each maps one point x (dim,) to its row."""
     import torch
@@ -93,3 +102,9 @@ def torch_callables(c: Coefficients, dtype, device):
         return torch.stack([torch.sum(x * x) + c.amp_g * p[2], torch.full_like(p[2], c.s0)])
 
     return f, g
+
+
+def torch_source(c: Coefficients, dtype, device):
+    """f1 for parabolic_solve: one point x (dim,) to the scalar source_np."""
+    f, _ = torch_callables(c, dtype, device)
+    return lambda x: f(x)[0]

@@ -2,10 +2,11 @@
 telemetry module (runtime/telemetry.py: SOLVES holds the counters' change
 over each of the last 64 amgb calls, with the call's start and end on
 time.perf_counter_ns, the clock of the window's timestamps).  A timed
-solve's counts are those of the one amgb call inside its [start, end].
+solve's counts are those of the amgb calls inside its [start, end],
+summed: one call for an amgb solve, one a time step for a parabolic one.
 
 per_solve(rec) is None where the port keeps no such record (a port without
-the module) or a timed solve has no call of its own inside it."""
+the module) or a timed solve has no call inside it."""
 
 from __future__ import annotations
 
@@ -22,9 +23,13 @@ def per_solve(rec):
     for s in rec.solves:
         lo, hi = s["start"] * 1e9, s["end"] * 1e9
         inside = [c for t0, t1, c in getattr(tm, "SOLVES", ()) if lo <= t0 and t1 <= hi]
-        if len(inside) != 1:
+        if not inside:
             return None
-        out.append(inside[0])
+        summed = {}
+        for c in inside:
+            for k, v in c.items():
+                summed[k] = summed.get(k, 0) + v
+        out.append(summed)
     return out
 
 

@@ -9,7 +9,9 @@ fn(Rank, *args) on each; it returns rank 0's return value.  Rank r runs on
 cuda:{r % device_count()}: one card each over NCCL (gloo on the CPU in the
 tests).  A rank that raises
 ends every rank (torch.multiprocessing terminates the others), and launch
-raises in its turn: it never waits on a rank that is gone.
+raises in its turn: it never waits on a rank that is gone.  Its error
+names the rank that raised first (the others then fail in their
+collectives, and torch.multiprocessing reports whichever it sees first).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import datetime
 import os
 import pickle
 import tempfile
+import time
+import traceback
 
 TIMEOUT_S = 300  # the longest a collective may wait before the group gives up
 
@@ -87,6 +91,10 @@ def _main(rank, fn, world, pg_backend, device, tmp, args, clock):
         if rank == 0:
             with open(os.path.join(tmp, "rank0.pkl"), "wb") as fh:
                 pickle.dump(out, fh)
+    except BaseException:
+        with open(os.path.join(tmp, f"error{rank}.txt"), "w") as fh:
+            fh.write(f"{time.time()!r}\n-- rank {rank}:\n{traceback.format_exc()}")
+        raise
     finally:
         tdist.destroy_process_group()
 
@@ -98,7 +106,20 @@ def launch(fn, world: int, pg_backend: str, device: str, args=(), clock=(0.0, 0.
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="perfbench-ranks-") as tmp:
-        mp.spawn(_main, args=(fn, world, pg_backend, device, tmp, tuple(args), tuple(clock)),
-                 nprocs=world, join=True)
+        try:
+            mp.spawn(_main, args=(fn, world, pg_backend, device, tmp, tuple(args), tuple(clock)),
+                     nprocs=world, join=True)
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+            errors = []
+            for r in range(world):
+                try:
+                    with open(os.path.join(tmp, f"error{r}.txt")) as fh:
+                        when, text = fh.read().split("\n", 1)
+                    errors.append((float(when), text))
+                except (OSError, ValueError):
+                    pass
+            if not errors:
+                raise
+            raise RuntimeError(min(errors)[1]) from exc
         with open(os.path.join(tmp, "rank0.pkl"), "rb") as fh:
             return pickle.load(fh)

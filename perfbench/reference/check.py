@@ -3,17 +3,20 @@ central path at t = 1/tol to the float64 floor, and is the objective the
 solver reports the objective of z?
 
 The problem (the configuration's): minimise J(z) = sum_i w_i c(x_i).(Dz)_i
-over z in z_g + V, with (Dz)_i inside the cone ||q|| <= s at every point
-(p = 1), V the continuous nodal space vanishing on the boundary.  The
-solver follows the central path of t J + sum_i w_i F(Dz_i), with the cone's
-barrier F = -log(s^2 - |q|^2), to t = 1/tol.
+over z in z_g + V, with (Dz)_i inside each of the problem's cones
+||q||^p <= s at every point, V the continuous nodal space vanishing on the
+boundary.  A cone's q are rows of Dz, less the point's aux value where the
+cone says so (the time step's (u - u_prev)^2 <= s2).  The solver follows
+the central path of t J + sum_i w_i F(Dz_i) to t = 1/tol, F the sum of the
+cones' barriers -log(s^(2/p) - |q|^2) - beta log s, beta = max(0, 2 - 2/p)
+(at p = 1: -log(s^2 - |q|^2)).
 
 Everything here is worked out again from the mesh of mesh.py and the data
 callables' coefficients: the program's iterate z and its reported objective
 are read only to be judged.  The numbers (each compared with a limit by the
 harness):
 
-  infeasible    points where Dz lies outside the cone by more than twice
+  infeasible    points where Dz lies outside a cone by more than twice
                 the rounding bound of a D z computation (gamma_nq |D| |z|
                 per entry): the solver decides feasibility on its own D z,
                 the judge on its own, each within one bound of the exact
@@ -57,15 +60,26 @@ import torch
 from .mesh import Mesh
 
 
+@dataclasses.dataclass(frozen=True)
+class Cone:
+    """||q||^p <= s at every point: q the rows `q` of Dz (less the point's
+    aux value where `aux`), s the row `s`."""
+
+    q: tuple
+    s: int
+    p: float = 1.0
+    aux: bool = False
+
+
 @dataclasses.dataclass
 class Problem:
-    """D rows as (field, op) with op 'id' or an axis 0..dim-1; the cone rows
-    (the q rows then s); the published cost rows and the data callables in
-    numpy: cost(x) (n, k) and start(x) (n, nfields)."""
+    """D rows as (field, op) with op 'id' or an axis 0..dim-1; the cones (a
+    list of Cone); the published cost rows and the data callables in numpy:
+    cost(x) (n, k) and start(x) (n, nfields)."""
 
     rows: list
     nfields: int
-    cone: list
+    cones: list
     cost: object
     start: object
     tol: float
@@ -73,7 +87,30 @@ class Problem:
 
 def default_problem(dim: int, cost, start, tol: float) -> Problem:
     rows = [(0, "id")] + [(0, a) for a in range(dim)] + [(1, "id")]
-    return Problem(rows, 2, list(range(1, dim + 2)), cost, start, tol)
+    return Problem(rows, 2, [Cone(tuple(range(1, dim + 1)), dim + 1)], cost, start, tol)
+
+
+def cone_derivs(q, s, m, p: float):
+    """The gradient and Hessian of -log(s^(2/p) - |q|^2) - beta log s,
+    beta = max(0, 2 - 2/p), over (q, s), in closed form: (gq (n, d), gs
+    (n,), Hqq (n, d, d), Hqs (n, d), Hss (n,)); m stands for the margin
+    s^(2/p) - |q|^2."""
+    if p == 1.0:
+        a, da, beta = 2 * s, 2.0, 0.0  # d(s^2)/ds and its derivative
+    else:
+        e = 2.0 / p
+        a, da, beta = e * s ** (e - 1), e * (e - 1) * s ** (e - 2), max(0.0, 2.0 - e)
+    m2 = m * m
+    eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
+    gq = 2 * q / m[:, None]
+    gs = -a / m
+    Hqq = 2 * eye / m[:, None, None] + 4 * q[:, :, None] * q[:, None, :] / m2[:, None, None]
+    Hqs = -2 * a[:, None] * q / m2[:, None]
+    Hss = -da / m + a * a / m2
+    if beta:
+        gs = gs - beta / s
+        Hss = Hss + beta / (s * s)
+    return gq, gs, Hqq, Hqs, Hss
 
 
 def dense_fits(n: int, dtype, device) -> bool:
@@ -142,9 +179,34 @@ class Judge:
             cols.append(v if op == "id" else torch.einsum("eqr,er->eq", self.grad[op], v))
         return torch.stack(cols, dim=-1).reshape(-1, self.k)
 
-    def _cone(self, y):
-        cone = self.prob.cone
-        return y[:, cone[:-1]], y[:, cone[-1]]
+    def cone_values(self, y, aux=None):
+        """Each cone's (q (n, d), s (n,), p) at the points' D z values y;
+        aux (n,): the points' aux column, for the cones that take it."""
+        out = []
+        for c in self.prob.cones:
+            q = y[:, list(c.q)]
+            if c.aux:
+                q = q - aux[:, None]
+            out.append((q, y[:, c.s], c.p))
+        return out
+
+    def margins(self, y, aux=None):
+        """Each cone's s^(2/p) - |q|^2."""
+        return [(s * s if p == 1.0 else s ** (2.0 / p)) - (q * q).sum(1)
+                for q, s, p in self.cone_values(y, aux)]
+
+    def barrier_value(self, y, aux=None):
+        """sum over the cones of -log(s^(2/p) - |q|^2) - beta log s per
+        point, or None where a point lies outside a cone."""
+        F = 0.0
+        for (q, s, p), m in zip(self.cone_values(y, aux), self.margins(y, aux)):
+            if bool((m <= 0).any() | (s <= 0).any()):
+                return None
+            F = F - torch.log(m)
+            beta = max(0.0, 2.0 - 2.0 / p)
+            if beta:
+                F = F - beta * torch.log(s)
+        return F
 
     def rounding(self, z):
         """A bound on |fl(D z) - D z| per entry: gamma_nq |D| |z| (the id rows are exact)."""
@@ -156,35 +218,35 @@ class Judge:
                 for f, op in self.prob.rows]
         return torch.stack(cols, dim=-1).reshape(-1, self.k)
 
-    def barrier_derivs(self, y, m=None):
-        """F' (n, k) and F'' (n, k, k) of -log(s^2 - |q|^2), zero off the cone
-        rows; m, if given, stands for the margin s^2 - |q|^2."""
-        q, s = self._cone(y)
-        if m is None:
-            m = s * s - (q * q).sum(1)
+    def barrier_derivs(self, y, m=None, aux=None):
+        """F' (n, k) and F'' (n, k, k) of the cones' barriers summed, zero
+        off the cone rows; m, if given, stands for the cones' margins (a
+        list, as margins gives them)."""
         n = y.shape[0]
-        cone = self.prob.cone
-        nc = len(cone)
-        g = torch.zeros((n, nc), dtype=y.dtype, device=y.device)
-        g[:, :-1] = 2 * q / m[:, None]
-        g[:, -1] = -2 * s / m
-        H = torch.zeros((n, nc, nc), dtype=y.dtype, device=y.device)
-        eye = torch.eye(nc - 1, dtype=y.dtype, device=y.device)
-        H[:, :-1, :-1] = 2 * eye / m[:, None, None] + 4 * q[:, :, None] * q[:, None, :] / (m * m)[:, None, None]
-        H[:, :-1, -1] = -4 * s[:, None] * q / (m * m)[:, None]
-        H[:, -1, :-1] = H[:, :-1, -1]
-        H[:, -1, -1] = -2 / m + 4 * s * s / (m * m)
+        if m is None:
+            m = self.margins(y, aux)
         F1 = torch.zeros((n, self.k), dtype=y.dtype, device=y.device)
         F2 = torch.zeros((n, self.k, self.k), dtype=y.dtype, device=y.device)
-        ci = torch.as_tensor(cone, device=y.device)
-        F1[:, ci] = g
-        F2[:, ci[:, None], ci[None, :]] = H
+        for c, (q, s, p), mc in zip(self.prob.cones, self.cone_values(y, aux), m):
+            nc = len(c.q) + 1
+            gq, gs, Hqq, Hqs, Hss = cone_derivs(q, s, mc, p)
+            g = torch.zeros((n, nc), dtype=y.dtype, device=y.device)
+            g[:, :-1] = gq
+            g[:, -1] = gs
+            H = torch.zeros((n, nc, nc), dtype=y.dtype, device=y.device)
+            H[:, :-1, :-1] = Hqq
+            H[:, :-1, -1] = Hqs
+            H[:, -1, :-1] = Hqs
+            H[:, -1, -1] = Hss
+            ci = torch.as_tensor(list(c.q) + [c.s], device=y.device)
+            F1[:, ci] += g
+            F2[:, ci[:, None], ci[None, :]] += H
         return F1, F2
 
     # -- the subspace ----------------------------------------------------------
 
-    def subspace_err(self, z):
-        d = (z - self.zg).reshape(self.ne, self.nq, self.nf)
+    def subspace_err(self, z, zg=None):
+        d = (z - (self.zg if zg is None else zg)).reshape(self.ne, self.nq, self.nf)
         node_pts = torch.as_tensor(self.mesh.node_pts, device=self.dev)
         dn = d[:, node_pts, :]  # (ne, nl, nf) nodal values
         node = torch.as_tensor(self.mesh.node_of, device=self.dev).reshape(-1)
@@ -218,10 +280,10 @@ class Judge:
         ve = ve.reshape(self.ne, self.nf, self.nl)
         return torch.einsum("qa,efa->eqf", interp, ve).reshape(-1, self.nf)
 
-    def _elements(self, y, t, m=None):
+    def _elements(self, y, t, m=None, aux=None):
         """The element gradients (ne, nf*nl) and Hessians (ne, nf*nl, nf*nl)
-        of t J + sum w F at y (m: the margins, as in barrier_derivs)."""
-        F1, F2 = self.barrier_derivs(y, m)
+        of t J + sum w F at y (m, aux: as in barrier_derivs)."""
+        F1, F2 = self.barrier_derivs(y, m, aux)
         w = self.w
         ge = torch.einsum("eqj,eqjc->ec",
                           (w[:, None] * (t * self.c + F1)).reshape(self.ne, self.nq, self.k), self.P)
@@ -229,11 +291,11 @@ class Judge:
         He = torch.einsum("eqjc,eqjl,eqld->ecd", self.P, WF, self.P)
         return ge, He
 
-    def system(self, y, t, m=None):
+    def system(self, y, t, m=None, aux=None):
         """The gradient g (N,) and the dense Hessian H (N, N) of
-        t J + sum w F at y, over the dofs of V (m: the margins, as in
+        t J + sum w F at y, over the dofs of V (m, aux: as in
         barrier_derivs)."""
-        ge, He = self._elements(y, t, m)
+        ge, He = self._elements(y, t, m, aux)
         g = self._scatter(ge)
         keep = self.edof >= 0
         C = self.edof.shape[1]
@@ -264,12 +326,12 @@ class Judge:
                 return None, dsc, shift
             shift *= 10
 
-    def decrement2(self, y, t, m=None):
+    def decrement2(self, y, t, m=None, aux=None):
         """(g^T H^{-1} g of t J + sum w F at y over the dofs of V, the
         diagonal shift the factor took)."""
         if self.band:
-            return self.band_decrement2(y, t, m)
-        g, H = self.system(y, t, m)
+            return self.band_decrement2(y, t, m, aux)
+        g, H = self.system(y, t, m, aux)
         Lc, dsc, shift = self.factor(H)
         del H
         if Lc is None:
@@ -279,13 +341,13 @@ class Judge:
 
     # -- the same system as a band, for an N whose dense matrix does not fit --
 
-    def band_system(self, y, t, m=None):
+    def band_system(self, y, t, m=None, aux=None):
         """g (N,) in the interleaved numbering, and H in it as a block
         tridiagonal matrix of nb blocks of B: diagonal blocks D (nb, B, B),
         sub-diagonal blocks E (nb, B, B), E[i] the rows of block i + 1 and
         the columns of block i.  The dofs past N that fill the last block
         take a unit diagonal and nothing else."""
-        ge, He = self._elements(y, t, m)
+        ge, He = self._elements(y, t, m, aux)
         B, nb, C = self.B, self.nb, self.ebdof.shape[1]
         keep = self.ebdof >= 0
         g = torch.zeros(nb * B, dtype=y.dtype, device=self.dev)
@@ -337,9 +399,9 @@ class Judge:
                 return None, dsc.reshape(-1), shift
             shift *= 10
 
-    def band_decrement2(self, y, t, m=None):
+    def band_decrement2(self, y, t, m=None, aux=None):
         """decrement2 through the block tridiagonal factor."""
-        g, D, E = self.band_system(y, t, m)
+        g, D, E = self.band_system(y, t, m, aux)
         fac, dsc, shift = self.band_factor(D, E)
         del D, E
         if fac is None:
@@ -355,24 +417,44 @@ class Judge:
 
     # -- the judgement -----------------------------------------------------------
 
-    def judge(self, z, reported_obj: float) -> dict:
+    def judge(self, z, reported_obj: float, start=None, aux=None) -> dict:
+        """The numbers of z; start (n, nfields) replaces the problem's start
+        data z_g where the solve began elsewhere (a time step's previous
+        snapshot), aux (n,) is the points' aux column of the cones that take
+        it."""
         z = torch.as_tensor(z, device=self.dev).to(self.dtype)
+        if aux is not None:
+            aux = torch.as_tensor(aux, device=self.dev).to(self.dtype)
         y = self.apply_D(z)
         J = float((self.w * (self.c * y).sum(1)).sum())
-        q, s = self._cone(y)
-        bq, bs = self._cone(2 * self.rounding(z))
-        qmin = (q.abs() - bq).clamp_min(0).norm(dim=1)
-        outside = ((s + bs) <= qmin) | ~torch.isfinite(y).all(1)
+        r = 2 * self.rounding(z)
+        eps = torch.finfo(self.dtype).eps
+        outside = ~torch.isfinite(y).all(1)
+        margins = []
+        values = zip(self.prob.cones, self.cone_values(y, aux), self.margins(y, aux))
+        for c, (q, s, p), m in values:
+            bq, bs = r[:, list(c.q)], r[:, c.s]
+            if c.aux:  # q = Dz - aux, one more rounding on each side
+                bq = bq + 2 * eps * (y[:, list(c.q)].abs() + aux.abs()[:, None])
+            qmin = (q.abs() - bq).clamp_min(0).norm(dim=1)
+            if p == 1.0:
+                outside |= (s + bs) <= qmin
+                mb = 2 * (s.abs() * bs + (q.abs() * bq).sum(1)) + bs * bs
+            else:
+                e = 2.0 / p
+                outside |= ((s + bs) <= 0) | ((s + bs).clamp_min(0) ** (1.0 / p) <= qmin)
+                mb = ((s.abs() + bs) ** e - s.abs() ** e
+                      + (2 * q.abs() * bq + bq * bq).sum(1))
+            # a margin that rounds to <= 0 inside the rounding takes the
+            # rounding's bound on it, so the barrier stays defined there
+            margins.append(torch.where(m > 0, m, mb))
         infeasible = int(outside.sum())
-        # a margin that rounds to <= 0 inside the rounding takes the
-        # rounding's bound on it, so the barrier stays defined there
-        margin = s * s - (q * q).sum(1)
-        mb = 2 * (s.abs() * bs + (q.abs() * bq).sum(1)) + bs * bs
-        margin = torch.where(margin > 0, margin, mb)
-        out = dict(infeasible=infeasible, subspace_err=self.subspace_err(z),
+        if start is not None:
+            start = torch.as_tensor(start, device=self.dev).to(self.dtype)
+        out = dict(infeasible=infeasible, subspace_err=self.subspace_err(z, start),
                    obj_rel=abs(reported_obj - J) / max(abs(J), 1e-300), objective=J)
         if infeasible:
             out.update(decrement=float("inf"), shift=0.0)
             return out
-        out["decrement"], out["shift"] = self.decrement2(y, 1.0 / self.prob.tol, margin)
+        out["decrement"], out["shift"] = self.decrement2(y, 1.0 / self.prob.tol, margins, aux)
         return out

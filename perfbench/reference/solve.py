@@ -15,11 +15,10 @@ from .check import Judge
 
 
 def barrier_objective(j: Judge, y, t):
-    q, s = j._cone(y)
-    m = s * s - (q * q).sum(1)
-    if bool((m <= 0).any() | (s <= 0).any()):
+    F = j.barrier_value(y)
+    if F is None:
         return math.inf
-    return float((j.w * (t * (j.c * y).sum(1) - torch.log(m))).sum())
+    return float((j.w * (t * (j.c * y).sum(1) + F)).sum())
 
 
 def solve(j: Judge, t0=0.1, kappa=10.0, max_newton=200):

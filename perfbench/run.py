@@ -5,9 +5,14 @@ one run of one cell.
 
 A cell names a configuration (configs/, its sizes, problem and limits)
 and a traffic (traffic/<name>.json: env, the MGB_* variables it sets;
-route, backend options; solve, keyword arguments of amgb; data, the seeded
-perturbation; warmup_tol).  The geometry is the port's constructor that
-the configuration's family names, and the judge is reference/'s.
+route, backend options; solve, keyword arguments of the entry; data, the
+seeded perturbation; warmup_tol).  The geometry is the port's constructor
+that the configuration's family names, and the judge is reference/'s.
+
+The entry is amgb, or where the configuration states "entry": "parabolic"
+(with h, t1 and p), the time stepper parabolic_solve: one solve is then a
+whole time-stepping solve, all of its steps, and the judge takes every
+step (reference/parabolic.py).  A parabolic configuration runs on one card.
 
 Set-up: the kernel library (built under build/kernels of the checkout by
 its first run, loaded by the others), the geometry of the cell's
@@ -40,9 +45,10 @@ The last line of standard output is one JSON object: correct, attempted,
 failed, metrics, device, with --trace 1 breakdown, and last the compared
 numbers with their limits (checks), which also close standard error.
 Exit 2: no card, fewer cards than the cell asks for, no port in the
-checkout, no such cell, or a cell whose chips differ from its
-configuration's ranks; exit 1: a rank of a mesh cell failed; exit 3: the
-JAX package or JAX was loaded.
+checkout, no such cell, a cell whose chips differ from its configuration's
+ranks, an entry that is not amgb or parabolic, or a parabolic
+configuration over several ranks; exit 1: a rank of a mesh cell failed;
+exit 3: the JAX package or JAX was loaded.
 
 Not part of the benchmark's runs: --calibrate s1,s2,... runs the set-up
 once, then one solve and its check per seed, a JSON line each; with
@@ -93,6 +99,7 @@ from perfbench import data, port_counters, spec  # noqa: E402
 from perfbench import trace as trace_mod  # noqa: E402
 from perfbench.reference import check as ref_check  # noqa: E402
 from perfbench.reference import mesh as ref_mesh  # noqa: E402
+from perfbench.reference import parabolic as ref_parabolic  # noqa: E402
 
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "multigridbarrier_tpu"})
 
@@ -104,6 +111,14 @@ def forbidden_loaded() -> list:
 
 
 GEOMETRY_KEYS = ("L", "k")  # the configuration's keys that the geometry call takes
+ENTRIES = ("amgb", "parabolic")  # the configuration's "entry"; amgb without one
+
+
+def entry_of(cfg) -> str:
+    entry = cfg.get("entry", "amgb")
+    if entry not in ENTRIES:
+        raise ValueError(f"no entry {entry!r}: the harness runs {', '.join(ENTRIES)}")
+    return entry
 
 
 def _geometry(mt, cfg, backend):
@@ -113,6 +128,16 @@ def _geometry(mt, cfg, backend):
 
 
 def _judge(cfg, coef, device):
+    tol = cfg.get("tol") or math.sqrt(2.0 ** -52)
+    if entry_of(cfg) == "parabolic":
+        dim = ref_mesh.DIM[cfg["family"]]
+        f, h = cfg["problem"]["f"], float(cfg["h"])
+        if list(f[1:]) != [0.0] * dim + [1.0, 1.0 / (2.0 * h)]:
+            raise ValueError(f"a time step's cost rows are [f1, 0.., 1, 1/(2h)], not {f}")
+        prob = ref_parabolic.step_problem(dim, float(cfg["p"]), h,
+                                          lambda x: data.source_np(coef, x),
+                                          lambda x: data.start_np(coef, x)[:, 0], tol)
+        return ref_check.Judge(ref_mesh.build(cfg), prob, device)
     pr = cfg["problem"]
     ops = {"id": "id", "dx": 0, "dy": 1, "dz": 2}
     fields = []
@@ -121,8 +146,9 @@ def _judge(cfg, coef, device):
         if fname not in fields:
             fields.append(fname)
         rows.append((fields.index(fname), ops[op]))
-    tol = cfg.get("tol") or math.sqrt(2.0 ** -52)
-    prob = ref_check.Problem(rows, len(fields), list(pr["cone"]),
+    cone = list(pr["cone"])
+    prob = ref_check.Problem(rows, len(fields),
+                             [ref_check.Cone(tuple(cone[:-1]), cone[-1], float(cfg["p"]))],
                              lambda x: data.cost_np(coef, x), lambda x: data.start_np(coef, x), tol)
     return ref_check.Judge(ref_mesh.build(cfg), prob, device)
 
@@ -171,10 +197,19 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
     over the ranks, the set-up time on the launching process's clock.  Rank
     0 alone judges, and holds every rank's iterate and objective to its own
     bit for bit (ranks_agree); the other ranks return None once the window
-    has closed."""
+    has closed.
+
+    With the parabolic entry each solve is one parabolic_solve, whose
+    record keeps each time step's logs under steps and, over the steps,
+    its Newton iterations summed (its), their per-step log joined (log)
+    and each phase's iterations per level summed (sol_main,
+    sol_feasibility: {"its": ...})."""
     import torch
 
     cfg, tr = cell.config, cell.traffic
+    entry = entry_of(cfg)
+    if entry == "parabolic" and ranks is not None:
+        raise ValueError("a parabolic configuration runs on one card")
     for k, v in tr.get("env", {}).items():
         os.environ[k] = str(v)
     import multigridbarrier_tpu_torch as mt
@@ -215,16 +250,29 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
                 c = data.draw(*((seeds[j], 0) if seeds else (seed, j)), dim, tr["data"],
                               cfg["problem"])
                 coefs.append(c)
-                fns.append(data.torch_callables(c, dtype, backend.device))
+                f, g = data.torch_callables(c, dtype, backend.device)
+                if entry == "parabolic":
+                    f = data.torch_source(c, dtype, backend.device)
+                fns.append((f, g))
             return fns[i]
 
-        kw = dict(D=[tuple(r) for r in cfg["problem"]["D"]], p=float(cfg["p"]),
-                  **tr.get("solve", {}))
+        if entry == "parabolic":
+            kw = dict(h=float(cfg["h"]), t1=float(cfg["t1"]), p=float(cfg["p"]),
+                      **tr.get("solve", {}))
+
+            def call(f, g, **k):
+                return mt.parabolic_solve(geometry, f1=f, g=g, **k)
+        else:
+            kw = dict(D=[tuple(r) for r in cfg["problem"]["D"]], p=float(cfg["p"]),
+                      **tr.get("solve", {}))
+
+            def call(f, g, **k):
+                return mt.amgb(geometry, f=f, g=g, **k)
         if cfg.get("tol") is not None:
             kw["tol"] = float(cfg["tol"])
         warm = dict(kw, tol=float(tr["warmup_tol"]))
         f, g = instance(0)
-        mt.amgb(geometry, f=f, g=g, **warm)
+        call(f, g, **warm)
         sync()
         plan = ([(j, k) for k in cuts for j in range(len(seeds))] if seeds else None)
         peak_setup = torch.cuda.max_memory_allocated(dev) if on_card else 0
@@ -235,6 +283,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
         t_win = time.perf_counter()
         setup_s = (_STARTUP + (t_win - _T0) if ranks is None
                    else ranks.startup + (t_win - ranks.t0))
+        phases["setup_s"] = setup_s
         while True:
             i = len(solves)
             d, cut = plan[i] if plan else ((max(i - 1, 0), 1) if tracer else (i, 1))
@@ -252,7 +301,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
             n0, b0 = _collective_counts()
             t0 = time.perf_counter()
             try:
-                sol, err = mt.amgb(geometry, f=f, g=g, **kwi), None
+                sol, err = call(f, g, **kwi), None
             except mt.AMGBConvergenceFailure as exc:
                 sol, err = None, repr(exc)
             sync()
@@ -266,11 +315,12 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
             n1, b1 = _collective_counts()
             rec = dict(start=t0, end=t1, wall=t1 - t0, err=err, data=d, cut=cut,
                        collectives=n1 - n0, collective_bytes=b1 - b0)
-            if sol is not None:
-                rec.update(z=sol.z.detach(), obj=float(sol.SOL_main.c_dot_Dz[-1]),
-                           its=int(sol.SOL_main.its.sum() + (sol.SOL_feasibility.its.sum()
-                                                             if sol.SOL_feasibility else 0)),
-                           logs=(sol.SOL_feasibility, sol.SOL_main, sol.log))
+            if sol is not None and entry == "parabolic":
+                steps = [_outcome(st) for st in sol.sols]
+                rec.update(z=[u.detach() for u in sol.u], obj=steps[-1]["obj"] if steps else None,
+                           its=sum(st["its"] for st in steps), steps=steps)
+            elif sol is not None:
+                rec.update(_outcome(sol), z=sol.z.detach())
             solves.append(rec)
             del sol
             if plan:
@@ -322,8 +372,13 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
 
     # each solve's log as host values: phase logs and the per-step log
     for s in solves:
-        feas, main, steps = s.pop("logs", (None, None, None))
-        s.update(sol_feasibility=_phase(feas), sol_main=_phase(main), log=steps)
+        for st in s.get("steps", [s]):
+            feas, main, log = st.pop("logs", (None, None, None))
+            st.update(sol_feasibility=_phase(feas), sol_main=_phase(main), log=log)
+        if "steps" in s:
+            s.update({k: _summed([st[k] for st in s["steps"]])
+                      for k in ("sol_feasibility", "sol_main")},
+                     log=[e for st in s["steps"] for e in (st["log"] or [])])
     # the check, on the card, after the program's state is gone
     limits = cell.limits()
     t = time.perf_counter()
@@ -332,7 +387,16 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
         if s["err"] is not None:
             s["check"], s["ok"] = None, False
             continue
-        s["check"] = _judge(cfg, coefs[s["data"]], dev).judge(z, s["obj"])
+        judge = _judge(cfg, coefs[s["data"]], dev)
+        if entry == "parabolic":
+            due = ref_parabolic.snapshots_due(float(cfg["t1"]), float(cfg["h"]))
+            s["check"], rows = ref_parabolic.judge_steps(
+                judge, z, [st["obj"] for st in s["steps"]], due)
+            for st, r in zip(s["steps"], rows):
+                st["check"] = r
+        else:
+            s["check"] = judge.judge(z, s["obj"])
+        del judge
         if differ is not None:
             s["check"]["ranks_agree"] = differ[j]
         s["ok"] = all(s["check"][n] <= lim for n, lim in limits.items())
@@ -358,6 +422,21 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool = False, dev
                     count=cell.chips, memory_peak_bytes=int(max(peak_setup, peak_window))),
         forbidden=sorted({m for o in every for m in o["forbidden"]}) if ranks is not None else [],
     )
+
+
+def _outcome(sol) -> dict:
+    """An amgb solution's reported objective, Newton iterations over the
+    levels of both phases, and its logs (feasibility, main, per step)."""
+    return dict(obj=float(sol.SOL_main.c_dot_Dz[-1]),
+                its=int(sol.SOL_main.its.sum() + (sol.SOL_feasibility.its.sum()
+                                                  if sol.SOL_feasibility else 0)),
+                logs=(sol.SOL_feasibility, sol.SOL_main, sol.log))
+
+
+def _summed(phases):
+    """The time steps' phase logs as one: their iterations per level summed."""
+    its = [p["its"] for p in phases if p is not None]
+    return {"its": [sum(v) for v in zip(*its)]} if its else None
 
 
 def _default_tol(dtype):
@@ -399,7 +478,9 @@ def report(cell: spec.Cell, out: dict, trace: bool, seeds=None) -> dict:
     solves, forbidden = out["rec"].solves, out["forbidden"]
     if seeds:
         return dict(rows=[dict(seed=seeds[s["data"]], cut=s["cut"], wall=s["wall"],
-                               its=s.get("its"), err=s["err"], ok=s["ok"], check=s["check"])
+                               its=s.get("its"), err=s["err"], ok=s["ok"], check=s["check"],
+                               **({"steps": [dict(its=st["its"], check=st.get("check"))
+                                             for st in s["steps"]]} if "steps" in s else {}))
                           for s in solves], forbidden=forbidden)
     return dict(line=result_line(cell, out, trace), phases=out["rec"].phases, forbidden=forbidden,
                 solves=[(s["wall"], s.get("its"), s["err"]) for s in solves])
@@ -450,6 +531,15 @@ def main(argv=None) -> int:
     if ranks != cell.chips:
         print(f"perfbench: {args.workload} asks for {cell.chips} chip(s), its configuration "
               f"states {ranks} rank(s), one a card", file=sys.stderr)
+        return 2
+    try:
+        entry = entry_of(cell.config)
+    except ValueError as exc:
+        print(f"perfbench: {exc}", file=sys.stderr)
+        return 2
+    if entry == "parabolic" and ranks > 1:
+        print(f"perfbench: {args.workload} is a parabolic configuration over {ranks} ranks; "
+              "the time stepper runs on one card", file=sys.stderr)
         return 2
     import torch
 
