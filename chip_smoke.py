@@ -95,7 +95,7 @@ Phases, one printed line each (or a few):
   6. fem2d_solve(L=7, p=1.0) on the default backend (two ND levels):
      c_dot_Dz inside FLOOR_BAND[7] = (9.415747, 9.415769), and the fine
      level grouped one front group per tree depth by the default cost rule
-     (ndsolve.front_groups "cost"); prints the symbolic-build seconds, each
+     at its replayed price (ndsolve.front_groups "cost_replay"); prints the symbolic-build seconds, each
      ND level's front groups and depths cut into two or more (equal to the
      telemetry counters nd.groups and nd.depths_split over the solve), the
      solve wall, its, peak device memory and the kernel launches;
@@ -1275,7 +1275,7 @@ def solve_l7(g7, label):
                                             "nd.depths_split": sum(k for _, k in groups.values())}:
         raise RuntimeError(f"{label}: telemetry counted {counted}, the levels hold {groups}")
     fine = ctx.nd[g7.levels - 1].fz.sym
-    if not (fine.grouping == "cost" and fine.ngroups == fine.maxd + 1):
+    if not (fine.grouping == "cost_replay" and fine.ngroups == fine.maxd + 1):
         raise RuntimeError(f"{label}: the fine level is grouped {fine.grouping} into "
                            f"{fine.ngroups} groups over {fine.maxd + 1} depths")
     return out, groups
@@ -1964,7 +1964,7 @@ def phase_nd_per_depth(g7, g3, ref6):
     it, within 1e-5 rel of phase 7's FEM3D_L3."""
     for label, g in (("fem2d L=7", g7), ("fem3d L=3 k=3", g3)):
         stats = {}
-        for grouping in ("classes", "depth", "cost"):
+        for grouping in ("classes", "depth", "cost", "cost_replay"):
             sym, secs = nd_fine_symbolic(g, grouping)
             stats[grouping] = group_stats(sym) + (sym.depths_split, secs)
         print(f"ND groups {label} fine level: "

@@ -7,9 +7,11 @@ host, never touching the device.
   ls_trials             line-search trials (barrier evaluations) of those steps
   dense_shift_retries   dense Cholesky attempts after the first (the shift ladder)
   nd_fallbacks          ND directions replaced by the Jacobi direction (not finite)
+  nd.graph_replays      fresh ND directions taken from a level's CUDA graph
   host_syncs.<why>      device-to-host reads through read(), by reason
   builds.<cache>        misses of the solve path's lazy caches (ctx, nd_level,
-                        he_plan, vals_table, hvp_schedule, mgcg_level, host_level)
+                        nd_graph, he_plan, vals_table, hvp_schedule, mgcg_level,
+                        host_level)
   nd.groups             front groups of the NDSymbolic schedules built (set-up)
   nd.depths_split       tree depths of those schedules cut into two or more groups
 
@@ -34,8 +36,9 @@ collector pauses record as "gc" spans (gc.callbacks).  Spans cover phases
            nd.symbolic.groups inside boundary
   solve    amgb, path.stage (one t, retries included), level.run
   step     step, and inside it step.grad, step.hessian, the direction
-           (nd.direction with nd.factor, nd.solve, nd.polish, nd.stale; or
-           dense.solve, host.solve, mgcg.solve), step.read, step.line_search
+           (nd.direction with nd.replay, or eagerly nd.factor, nd.solve,
+           nd.polish; nd.stale; or dense.solve, host.solve, mgcg.solve),
+           step.read, step.line_search
            with one ls.trial per trial
 
 read(t, why) is the one way the solve path reads a tensor on the host: it
@@ -52,7 +55,7 @@ import time
 import torch
 
 COUNTERS: dict = {"newton_steps": 0, "ls_trials": 0, "dense_shift_retries": 0,
-                  "nd_fallbacks": 0, "nd.groups": 0, "nd.depths_split": 0}
+                  "nd_fallbacks": 0, "nd.graph_replays": 0, "nd.groups": 0, "nd.depths_split": 0}
 SPANS: list = []  # (name, start_ns, end_ns), while enabled
 SOLVES = collections.deque(maxlen=64)  # (start_ns, end_ns, {counter: change}) per amgb call
 

@@ -27,7 +27,9 @@ rejects non-finite steps.  The direction comes from one of these routes:
     and D) with a two-trip factor-preconditioned CG polish on the exact
     pair-block matvec and a Jacobi fallback on a non-finite direction
     (_NDLevel, the JAX _get_nd direction; with MGB_ND_REUSE=1 a stale
-    factor's PCG first, the JAX _run_level_nd_reuse);
+    factor's PCG first, the JAX _run_level_nd_reuse); on a CUDA level off
+    a mesh the fresh-factor direction is captured once into a CUDA graph
+    and replayed (nd_graph_on);
   - host: host scipy SuperLU with factor reuse (hostsolve.HostDirectLevel,
     _HostLevel); the step's values and gradient go to the host in one copy
     and the direction comes back in one;
@@ -97,7 +99,7 @@ from torch.func import grad, hessian, vmap
 
 from ..fem.geometry import Geometry
 from ..options import ND_KNOBS, SolverOptions  # noqa: F401  (ND_KNOBS: re-exported for the tests)
-from ..runtime import dist, telemetry
+from ..runtime import cuda_kernels, dist, telemetry
 from ..runtime.blockdiag import BlockDiagOp
 from ..runtime.cuda_kernels import GatherPlan, HePlan, SegmentPlan
 from .convex import Convex, convex_Euclidian_power
@@ -257,6 +259,16 @@ def _pcg_trip(matvec, apply_fac, xv, r, p, rz):
     return xv, r, torch.where(ok, z + beta * p, p), rz2, ok
 
 
+def nd_graph_on(device, mesh=None) -> bool:
+    """Whether an ND level whose tensors live on `device` (factor split
+    over `mesh`) replays its fresh-factor direction from a CUDA graph: on
+    a CUDA device off a mesh and without MGB_ND_DEBUG_FRONTS.  Everything
+    else stays eager: the CPU, a mesh (gloo cannot capture) and the debug
+    fronts (not a direction)."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and os.environ.get("MGB_ND_DEBUG_FRONTS") != "1")
+
+
 class _NDLevel:
     """Nested-dissection Newton direction of one level: the JAX
     _SolverCtx._get_nd state and make_direction(None, n_cg) — factor,
@@ -264,6 +276,13 @@ class _NDLevel:
     exact pair-block matvec, kept only where its quadratic model is lower,
     and a Jacobi fallback when the direction is not finite.  Branch-free on
     the device: nothing in direction() syncs with the host.
+
+    Where nd_graph_on (a CUDA level off a mesh), the level's first fresh
+    direction captures that whole computation into a CUDA graph over
+    static copies of vals and gv, and every fresh direction after it
+    copies its inputs in and replays the graph: the same kernels and
+    library calls in the same order, so the same bits as the eager
+    direction, for one launch where the eager one makes ~1,000.
 
     MGB_ND_REUSE=1 (the JAX _run_level_nd_reuse): the level keeps its last
     factor, and a Newton step first tries a PCG on the exact matvec
@@ -288,9 +307,12 @@ class _NDLevel:
         m = basis.m
         idx = basis.idx.cpu().numpy()
         dev = basis.idx.device
+        # the front groups are priced as replayed wherever the level could
+        # replay (off a mesh), so that the debug fronts keep the grouping
+        # of the run they show
         sym = NDSymbolic(idx, m, nf, node_coords(idx, m, x.cpu().numpy(), basis.nq),
                          leaf=int(os.environ.get("MGB_ND_LEAF", "16")),
-                         grouping=nd_grouping(dev))
+                         grouping=nd_grouping(dev, replayed=mesh is None))
         self.m, self.nf = m, nf
         # CG trips of the polish (the JAX CPU default; JAX's accelerator
         # default of 0 is not taken)
@@ -316,6 +338,10 @@ class _NDLevel:
                 dev,
             )
             self.diag = GatherPlan(self.diag_ids, nvals)
+        # the captured direction, at the first fresh one: (graph, its
+        # recorded launches, static (vals, gv), static (dvp, finite, fac))
+        self.use_graph = nd_graph_on(dev, mesh)
+        self.graph = None
         self.begin()
 
     def begin(self):
@@ -396,18 +422,66 @@ class _NDLevel:
 
     def direction(self, vals: torch.Tensor, gv: torch.Tensor) -> torch.Tensor:
         """vals (HostPattern layout), gv (nf, m+1) -> dvp (nf, m+1), the
-        Newton direction for -gv with a zero pad slot, from a fresh factor
-        (kept as the stale factor under MGB_ND_REUSE=1)."""
-        m = self.m
-        b = -gv[:, :m].T.reshape(-1)
-        with telemetry.span("nd.factor"):
-            fac = self.fz.factor(vals)
-        vpair = self.pair_vidx(vals)
+        Newton direction for -gv with a zero pad slot, from a fresh factor:
+        replayed from the level's graph where use_graph, else computed
+        eagerly.  Under MGB_ND_REUSE=1 the factor is kept as the stale
+        factor; after a replay it is the graph's own static factor, valid
+        until the next replay, which is the next refactor."""
+        if self.use_graph:
+            with telemetry.span("nd.replay"):
+                dvp, self.finite, fac = self._replay(vals, gv)
+        else:
+            dvp, self.finite, fac = self._fresh(vals, gv)
         if self.reuse:
             self.fac = fac
             self.factors += 1
             self.run_factors += 1
             self.steps_since = 0
+        return dvp
+
+    def _replay(self, vals: torch.Tensor, gv: torch.Tensor):
+        """_fresh's (dvp, finite, fac) from the level's graph, captured at
+        the first call; dvp and finite are copies, which no later replay
+        overwrites."""
+        if self.graph is None:
+            self._capture(vals, gv)
+        graph, recorded, (vals_in, gv_in), (dvp, finite, fac) = self.graph
+        vals_in.copy_(vals)
+        gv_in.copy_(gv)
+        cuda_kernels.replay(graph, recorded)
+        telemetry.count("nd.graph_replays")
+        return dvp.clone(), finite.clone(), fac
+
+    def _capture(self, vals: torch.Tensor, gv: torch.Tensor):
+        """Capture _fresh into a CUDA graph over static copies of vals and
+        gv (the pattern of linsolve._graph_loop): a first run on a side
+        stream sets up the cuBLAS and cuSOLVER handles and workspaces that
+        capture needs.  The graph keeps its intermediates in a memory pool
+        of its own."""
+        telemetry.build("nd_graph")
+        static_in = (vals.clone(), gv.clone())
+        side = torch.cuda.Stream(vals.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._fresh(*static_in)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(cuda_kernels.CAPTURED)
+        with torch.cuda.graph(graph):
+            static_out = self._fresh(*static_in)
+        recorded = {k: n - before[k] for k, n in cuda_kernels.CAPTURED.items() if n > before[k]}
+        self.graph = (graph, recorded, static_in, static_out)
+
+    def _fresh(self, vals: torch.Tensor, gv: torch.Tensor):
+        """The fresh-factor direction computed eagerly: (dvp, finite, fac),
+        finite False on the device where the direction was not finite and
+        the Jacobi direction replaced it.  Reads and writes no host state,
+        so that it can be captured."""
+        m = self.m
+        b = -gv[:, :m].T.reshape(-1)
+        with telemetry.span("nd.factor"):
+            fac = self.fz.factor(vals)
+        vpair = self.pair_vidx(vals)
 
         def apply_fac(r):
             return self.fz.solve(fac, r)
@@ -434,9 +508,9 @@ class _NDLevel:
             xv = torch.where(take_cg, xv_cg, xv)
             # 1e-300 rounds to 0 in float32: its floor is the smallest normal
             dg = self.diag(vals).abs().clamp_min(max(1e-300, torch.finfo(vals.dtype).tiny))
-            self.finite = torch.isfinite(xv).all()
-            xv = torch.where(self.finite, xv, b / dg)
-        return self._to_dvp(xv)
+            finite = torch.isfinite(xv).all()
+            xv = torch.where(finite, xv, b / dg)
+        return self._to_dvp(xv), finite, fac
 
 
 class _HostLevel:

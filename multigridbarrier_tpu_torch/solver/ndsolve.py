@@ -14,8 +14,9 @@ gathers and segment sums.
   (front_groups: each tree depth split into front-size classes, the JAX
   package's CPU grouping and the default off CUDA; one group per depth,
   its accelerator grouping; or, the default on CUDA, each depth cut where
-  a group's launches cost less than the padding it saves, cost_runs;
-  nd_grouping reads MGB_ND_BUCKET), and the dof-level
+  a group's launches cost less than the padding it saves, cost_runs, with
+  the launches priced as the host issues them or as a CUDA graph replays
+  them; nd_grouping reads MGB_ND_BUCKET), and the dof-level
   index maps of assembly, fan-in extend-add and the two solve sweeps;
   copied from the JAX module array for array.  The port adds the CSR tables its
   deterministic sums need (_build_sum_tables).  The relay extend-add maps
@@ -161,14 +162,18 @@ def front_flops(s, b):
 
 
 # The cost rule's constants, measured once on an NVIDIA H100 80GB HBM3 at
-# 700 W (tools/nd_group_cost_torch.py; PERF.md): the host and launch
-# seconds one front group adds to a Newton direction (assembly, factor,
-# three solves' sweeps; fem2d L=7's direction at 43 groups against 11), and
-# the card's float64 rate of a group's factor, trsm and Schur product,
-# pooled over fem3d L=4's groups of fronts of 1,000 dofs or more.  Fixed
-# here, never measured at run time: the grouping, and so the solve's bits,
-# depend on the mesh alone.
-C_GROUP = 1.84e-3  # s per group and direction
+# 700 W (tools/nd_group_cost_torch.py; PERF.md): the seconds one front
+# group adds to a Newton direction (assembly, factor, three solves' sweeps;
+# fem2d L=7's direction at 43 groups against 11), where the host issues
+# every launch (C_GROUP: a mesh's levels, the mgcg route's ND coarse level)
+# and where the level replays its direction from a CUDA graph
+# (C_GROUP_REPLAY: the device's own cost of the launches); and the card's
+# float64 rate of a group's factor, trsm and Schur product, pooled over
+# fem3d L=4's groups of fronts of 1,000 dofs or more.  Fixed here, never
+# measured at run time: the grouping, and so the solve's bits, depend on
+# the mesh alone.
+C_GROUP = 1.84e-3  # s per group and direction, issued by the host
+C_GROUP_REPLAY = 0.28e-3  # s per group and direction, replayed
 R_F64 = 8.51e12  # flop/s
 
 
@@ -214,7 +219,9 @@ def front_groups(sep, bd, depth_of, nf: int, grouping: str) -> List[list]:
                larger batches)
       cost     each depth's fronts sorted by (F, sep, id) and cut by cost_runs:
                one group per depth wherever a group's launches cost more
-               than the padding it saves"""
+               than the padding it saves, the launches at C_GROUP
+      cost_replay  the same at C_GROUP_REPLAY, for a level whose direction
+               is replayed from a CUDA graph"""
     sep, bd, depth_of = (np.asarray(a) for a in (sep, bd, depth_of))
     F = sep + bd
     groups = []
@@ -225,23 +232,28 @@ def front_groups(sep, bd, depth_of, nf: int, grouping: str) -> List[list]:
         elif grouping == "classes":
             cls = np.array([next((g for g in _CLASS_GRID if f <= g), f) for f in F[ids]])
             runs = [ids[cls == c] for c in np.unique(cls)]
-        elif grouping == "cost":
+        elif grouping in ("cost", "cost_replay"):
             order = ids[np.lexsort((ids, sep[ids], F[ids]))]
-            ends = cost_runs(sep[order], bd[order], nf, C_GROUP, R_F64)
+            c_group = C_GROUP if grouping == "cost" else C_GROUP_REPLAY
+            ends = cost_runs(sep[order], bd[order], nf, c_group, R_F64)
             runs = [np.sort(order[a:e]) for a, e in zip([0] + ends[:-1], ends)]
         else:
-            raise ValueError(f"front grouping {grouping!r}: expected classes, depth or cost")
+            raise ValueError(f"front grouping {grouping!r}: expected classes, depth, cost or "
+                             "cost_replay")
         groups += [r.tolist() for r in runs if len(r)]
     return groups
 
 
-def nd_grouping(device) -> str:
+def nd_grouping(device, replayed: bool = False) -> str:
     """The front grouping of an ND level whose tensors live on `device`:
     MGB_ND_BUCKET=1 size classes, 0 one group per depth, auto (the
-    default) the cost rule on CUDA and size classes elsewhere."""
+    default) the cost rule on CUDA, its launches priced as a CUDA graph
+    replays them where `replayed`, and size classes elsewhere."""
     bucket = _env_choice("MGB_ND_BUCKET", "auto", ("auto", "0", "1"))
     if bucket == "auto":
-        return "cost" if torch.device(device).type == "cuda" else "classes"
+        if torch.device(device).type != "cuda":
+            return "classes"
+        return "cost_replay" if replayed else "cost"
     return "depth" if bucket == "0" else "classes"
 
 
@@ -250,8 +262,8 @@ class NDSymbolic:
 
     `idx` (nelem, nl) node ids with pad slot m, `m` real nodes, `nf`
     fields, `coords` (m, dim) node coordinates for the bisection;
-    `grouping` front_groups' classes | depth | cost (None: a CPU level's,
-    nd_grouping("cpu"))."""
+    `grouping` front_groups' classes | depth | cost | cost_replay (None: a
+    CPU level's, nd_grouping("cpu"))."""
 
     def __init__(self, idx: np.ndarray, m: int, nf: int, coords: np.ndarray,
                  leaf: int = 16, grouping: Optional[str] = None):
@@ -747,8 +759,9 @@ def _eye_pad(A, S):
         return A
     P = A.new_zeros((n, S, S))
     P[:, :s, :s] = A
-    ar = torch.arange(s, S, device=A.device)
-    P[:, ar, ar] = 1.0
+    # a fill kernel, where assigning a Python float copies from the host,
+    # which a CUDA graph capture refuses
+    P.diagonal(dim1=1, dim2=2)[:, s:].fill_(1.0)
     return P
 
 
@@ -1042,7 +1055,7 @@ class NDFactorizer:
         # Schur complements apart instead
         src = vals.new_zeros(self._sb[-1] + 1, dtype=self.dtype)
         src[:nv] = vals
-        src[-1] = 1.0
+        src[-1:].fill_(1.0)  # a fill kernel, not a host copy (_eye_pad)
         schur_pad = {}
         out = []
         for d in range(sym.ngroups - 1, -1, -1):

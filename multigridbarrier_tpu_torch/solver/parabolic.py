@@ -17,7 +17,9 @@ formulated in the linear-cost barrier framework with two slack fields:
     Q = { ||grad u||^p <= s1 }  ∩  { (u - u_prev)^2 <= s2 }
 
 u_prev enters as an aux data column appended to x (see amgb's `aux`), so
-every step reuses the solver contexts of the first.
+every step reuses the solver contexts of the first; and Q is kept on the
+geometry per p (amgb keys a context by Q's barrier), so every later call
+on that geometry and p reuses them too, with their ND levels and graphs.
 """
 
 from __future__ import annotations
@@ -41,6 +43,36 @@ class ParabolicSOL:
     sols: list  # per-step AMGBSOL (diagnostics)
 
 
+def _constraint(geometry: Geometry, p):
+    """Q = { ||grad u||^p <= s1 } ∩ { (u - u_prev)^2 <= s2 } on the fields
+    (u, s1, s2), built once per (geometry, p)."""
+    cache = getattr(geometry, "_parabolic_Q", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(geometry, "_parabolic_Q", cache)
+    if p in cache:
+        return cache[p]
+    dim, k = geometry.dim, geometry.dim + 3
+
+    # Q1: ||grad u||^p <= s1  (components 1..dim and dim+1)
+    Q1 = convex_Euclidian_power(idx=tuple(range(1, dim + 2)), p=p)
+
+    # Q2: (u - u_prev)^2 <= s2 ; u_prev is aux column dim of x.
+    A2_const = torch.zeros((2, k), dtype=geometry.x.dtype, device=geometry.x.device)
+    A2_const[0, 0] = 1.0
+    A2_const[1, k - 1] = 1.0
+
+    def A2(x):
+        return A2_const
+
+    def b2(x):
+        return torch.stack([-x[dim], torch.zeros_like(x[dim])])
+
+    Q2 = convex_Euclidian_power(idx=(0, k - 1), p=2.0, A=A2, b=b2)
+    cache[p] = convex_intersect(Q1, Q2)
+    return cache[p]
+
+
 def parabolic_solve(
     geometry: Geometry,
     *,
@@ -62,7 +94,6 @@ def parabolic_solve(
         + [("u", g_) for g_ in grads]
         + [("s1", "id"), ("s2", "id")]
     )
-    k = len(D)
 
     def as_row(v):
         if isinstance(v, torch.Tensor):
@@ -75,22 +106,7 @@ def parabolic_solve(
         f1v = as_row(f1(x[:dim]) if callable(f1) else f1)
         return torch.cat([f1v.reshape(1), cost_rest])
 
-    # Q1: ||grad u||^p <= s1  (components 1..dim and dim+1)
-    Q1 = convex_Euclidian_power(idx=tuple(range(1, dim + 2)), p=p)
-
-    # Q2: (u - u_prev)^2 <= s2 ; u_prev is aux column dim of x.
-    A2_const = torch.zeros((2, k), dtype=dtype, device=device)
-    A2_const[0, 0] = 1.0
-    A2_const[1, k - 1] = 1.0
-
-    def A2(x):
-        return A2_const
-
-    def b2(x):
-        return torch.stack([-x[dim], torch.zeros_like(x[dim])])
-
-    Q2 = convex_Euclidian_power(idx=(0, k - 1), p=2.0, A=A2, b=b2)
-    Q = convex_intersect(Q1, Q2)
+    Q = _constraint(geometry, p)
 
     # initial data: u component of g (default: |x|^2 with boundary trace).
     ginit = g if g is not None else default_g(dim, dtype)

@@ -1,6 +1,8 @@
 """The ND front groups of the port's cost rule (ndsolve.front_groups
-"cost", the default on CUDA levels) and the device default around it
-(ndsolve.nd_grouping, MGB_ND_BUCKET=auto): CPU, float64, port only.
+"cost" and "cost_replay", the defaults on CUDA levels: a group's launches
+priced as the host issues them, or as the level's CUDA graph replays
+them) and the device default around it (ndsolve.nd_grouping,
+MGB_ND_BUCKET=auto): CPU, float64, port only.
 
 Tolerances and why:
 - partitions (which fronts share a group): integers, equal exactly, and
@@ -32,7 +34,7 @@ tam = importlib.import_module("multigridbarrier_tpu_torch.solver.amgb")
 
 # constants under which padding costs far more than a group: the rule then
 # cuts wherever two fronts' shapes differ much
-PAD_BOUND = dict(C_GROUP=1e-9, R_F64=1e9)
+PAD_BOUND = dict(C_GROUP=1e-9, C_GROUP_REPLAY=1e-9, R_F64=1e9)
 
 
 @pytest.fixture(autouse=True)
@@ -70,16 +72,17 @@ def _check_schedule(sym):
             assert sym.group_of[p] < sym.group_of[i]
 
 
+@pytest.mark.parametrize("grouping", ["cost", "cost_replay"])
 @pytest.mark.parametrize("consts", ["measured", "pad_bound"])
 @pytest.mark.parametrize("fem, L", [("fem2d", 4), ("fem2d", 5), ("fem3d", 2)])
-def test_cost_partition_is_a_valid_schedule(monkeypatch, fem, L, consts):
+def test_cost_partition_is_a_valid_schedule(monkeypatch, fem, L, consts, grouping):
     if consts == "pad_bound":
         for name, value in PAD_BOUND.items():
             monkeypatch.setattr(tnd, name, value)
     idx, m, coords = _fine(fem, L)
-    a = tnd.NDSymbolic(idx, m, 2, coords, grouping="cost")
-    b = tnd.NDSymbolic(idx, m, 2, coords, grouping="cost")
-    assert a.grouping == "cost" and a.by_depth == b.by_depth
+    a = tnd.NDSymbolic(idx, m, 2, coords, grouping=grouping)
+    b = tnd.NDSymbolic(idx, m, 2, coords, grouping=grouping)
+    assert a.grouping == grouping and a.by_depth == b.by_depth
     _check_schedule(a)
     depth = tnd.NDSymbolic(idx, m, 2, coords, grouping="depth")
     assert depth.ngroups == depth.maxd + 1
@@ -106,6 +109,12 @@ def test_outlier_split_off_only_when_padding_dominates():
         assert tnd.front_groups(sep, bd, depth_of, 2, "cost") == [list(range(1, 9)), [0]]
         mp.setattr(tnd, "C_GROUP", 10.0)
         assert tnd.front_groups(sep, bd, depth_of, 2, "cost") == [list(range(9))]
+        # the replayed price is a constant of its own
+        mp.setattr(tnd, "C_GROUP_REPLAY", 1e-6)
+        assert tnd.front_groups(sep, bd, depth_of, 2, "cost_replay") == [list(range(1, 9)), [0]]
+        mp.setattr(tnd, "C_GROUP", 1e-6)
+        mp.setattr(tnd, "C_GROUP_REPLAY", 10.0)
+        assert tnd.front_groups(sep, bd, depth_of, 2, "cost_replay") == [list(range(9))]
     assert tnd.front_groups(sep, bd, depth_of, 2, "depth") == [list(range(9))]
     assert tnd.front_groups(sep, bd, depth_of, 2, "classes") == [list(range(1, 9)), [0]]
 
@@ -170,14 +179,15 @@ def test_factor_solve_cost_groups_match_classes(monkeypatch, system, consts):
     assert rel <= 1e-12
 
 
-@pytest.mark.parametrize("bucket, cpu, cuda", [
-    (None, "classes", "cost"), ("auto", "classes", "cost"),
-    ("0", "depth", "depth"), ("1", "classes", "classes")])
-def test_device_default_and_override(monkeypatch, bucket, cpu, cuda):
+@pytest.mark.parametrize("bucket, cpu, cuda, replayed", [
+    (None, "classes", "cost", "cost_replay"), ("auto", "classes", "cost", "cost_replay"),
+    ("0", "depth", "depth", "depth"), ("1", "classes", "classes", "classes")])
+def test_device_default_and_override(monkeypatch, bucket, cpu, cuda, replayed):
     if bucket is not None:
         monkeypatch.setenv("MGB_ND_BUCKET", bucket)
-    assert tnd.nd_grouping("cpu") == cpu
+    assert tnd.nd_grouping("cpu") == tnd.nd_grouping("cpu", replayed=True) == cpu
     assert tnd.nd_grouping(torch.device("cuda")) == cuda
+    assert tnd.nd_grouping(torch.device("cuda"), replayed=True) == replayed
 
 
 def test_unknown_bucket_value_raises(monkeypatch):

@@ -76,3 +76,33 @@ def test_parabolic_runs_in_2d_and_3d(family):
     # fields (u, s1, s2) and D rows u:id, the gradient, s1:id, s2:id
     assert ctx.spec.nfields == 3 and ctx.spec.k == g.dim + 3
     assert ctx.x.shape[1] == g.dim + 1
+
+
+@pytest.mark.parametrize("family", ["fem1d", "fem2d"])
+def test_parabolic_calls_share_one_context(family):
+    """The constraint is kept per (geometry, p), so a second call on the
+    geometry builds no solver context, ND level or plan, and repeats the
+    first call's snapshots bit for bit; another step length shares it."""
+    from multigridbarrier_tpu_torch.runtime import telemetry as tm
+
+    if family == "fem1d":
+        g = mt.fem1d(L=3, backend=mt.backend_cpu())
+    else:
+        g = mt.fem2d(L=2, backend=mt.backend_cpu())
+    first = mt.parabolic_solve(g, h=0.5, t1=1.0, p=1.0)
+    before = dict(tm.COUNTERS)
+    again = mt.parabolic_solve(g, h=0.5, t1=1.0, p=1.0)
+    built = {k: v - before.get(k, 0) for k, v in tm.COUNTERS.items() if k.startswith("builds.")}
+    assert len(g.ctx_cache) == 1 and not any(built.values()), built
+    assert all(torch.equal(a, b) for a, b in zip(first.u, again.u))
+    mt.parabolic_solve(g, h=0.25, t1=0.5, p=1.0)
+    assert len(g.ctx_cache) == 1
+
+
+def test_parabolic_context_per_exponent():
+    """Each exponent p is a constraint of its own, and so a context of its
+    own, which a later call at that p reuses."""
+    g = mt.fem1d(L=2, backend=mt.backend_cpu())
+    for p, contexts in ((1.0, 1), (2.0, 2), (1.0, 2), (2.0, 2)):
+        mt.parabolic_solve(g, h=0.5, t1=0.5, p=p)
+        assert len(g.ctx_cache) == contexts

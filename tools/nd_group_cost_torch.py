@@ -3,6 +3,7 @@
 GPU (ndsolve.C_GROUP and ndsolve.R_F64), and what the rule then builds.
 
     python3 tools/nd_group_cost_torch.py [--reps 10] [--cases fem2d7,fem3d4]
+                                         [--c-group MS,MS...]
 
 For each case (fem2d L=7 and fem3d L=4 k=3, the fine level, which takes
 the nested-dissection route on the default backend) it takes the fine
@@ -16,7 +17,11 @@ and one group per depth (MGB_ND_BUCKET=0):
      (nd.symbolic.groups);
   2. times one whole Newton direction (factor, solve, the CG polish) on
      the host clock ending in a synchronize, median of --reps after a
-     warm-up, with the peak device memory of the direction;
+     warm-up, twice: computed eagerly (_NDLevel._fresh: the host issues
+     every launch), with the peak device memory of the direction, and
+     replayed from the level's CUDA graph (_NDLevel.direction, as the
+     solver takes it; the first call captures), with the memory the
+     capture reserved for the graph's pool;
   3. times each group of fronts of at least 1,000 dofs: its factor, Lsb
      solve and Schur product on its own assembled fronts (CUDA events,
      median of --reps), with its flops and rate.
@@ -25,11 +30,15 @@ R_F64 is the pooled rate of step 3 over the fem3d groups (flops over
 milliseconds).  C_GROUP is the fem2d direction's wall under size classes
 less that under one group per depth, less the difference of their factor
 flops at R_F64, over the difference of their group counts (the padding is
-nearly free there, so the launches make the difference); the same reading
-at fem3d is printed beside it.  Then, with those constants, it prints the
-rule's partition of each case (groups, depths split, padded flops) over a
-grid of constants around them, builds the level under it (MGB_ND_BUCKET=
-auto with the measured constants) and times its direction as in step 2.
+nearly free there, so the launches make the difference), read once from
+the eager walls and once from the replayed ones; the same readings at
+fem3d are printed beside them.  Then, with the replayed C_GROUP, it prints
+the rule's partition of each case (groups, depths split, padded flops)
+over a grid of constants around it, and builds the level under the rule
+(MGB_ND_BUCKET=auto: a level off a mesh groups by cost_replay) at each
+C_GROUP of --c-group (ms; default: ndsolve.C_GROUP, the eager price, and
+the replayed reading) with the measured R_F64, and times its direction as
+in step 2.
 
 Prints the card line (nvidia-smi name and power limit) first and last.
 Exits 1 without a CUDA device.
@@ -57,6 +66,7 @@ CASES = {"fem2d7": ("fem2d L=7", lambda: mt.fem2d(L=7)),
          "fem3d4": ("fem3d L=4 k=3", lambda: mt.fem3d(L=4, k=3))}
 BUCKET = {"classes": "1", "depth": "0", "cost": "auto"}
 WIDE = 1000  # least front width (dofs) of the groups whose factor rate is read
+C_GROUP_SOURCE = ND.C_GROUP  # the constant the rule is built with, eager
 
 
 def card_line() -> str:
@@ -125,7 +135,8 @@ def depths_split(sym, groups):
 
 def measure(label, ctx, level, nf, vals, grouping, reps):
     """Steps 1-3 under one grouping; returns (groups, padded flops,
-    direction ms, [(flops, ms)] of the wide groups, the level)."""
+    eager direction ms, replayed direction ms, [(flops, ms)] of the wide
+    groups, the level)."""
     os.environ["MGB_ND_BUCKET"] = BUCKET[grouping]
     try:
         telemetry.SPANS.clear()
@@ -141,13 +152,19 @@ def measure(label, ctx, level, nf, vals, grouping, reps):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ms = wall_ms(lambda: nd.direction(vals, gv), reps)
+    ms = wall_ms(lambda: nd._fresh(vals, gv), reps)
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    replay_ms = wall_ms(lambda: nd.direction(vals, gv), reps) if nd.use_graph else float("nan")
+    pool = (torch.cuda.memory_reserved() - reserved) / 1e9
     print(f"{label} {grouping} ({sym.grouping}): {sym.ngroups} groups over {sym.maxd + 1} depths, "
           f"{sym.depths_split} depths split; factor GFLOP padded {padded / 1e9:.3f}, "
           f"unpadded {real / 1e9:.3f}; nd.symbolic {sym_s:.2f} s, of it the grouping "
-          f"{rule_ms:.2f} ms; direction {ms:.3f} ms (median of {reps}), its peak memory "
-          f"{peak:.3f} GB; fronts per group {[len(ids) for ids in sym.by_depth]}", flush=True)
+          f"{rule_ms:.2f} ms; direction eager {ms:.3f} ms, replayed {replay_ms:.3f} ms "
+          f"(medians of {reps}); the eager direction's peak memory {peak:.3f} GB, the "
+          f"graph's reserved {pool:.3f} GB; fronts per group "
+          f"{[len(ids) for ids in sym.by_depth]}", flush=True)
     wide = []
     for d, (n_d, F, s) in enumerate(fz._shape):
         if F < WIDE:
@@ -165,13 +182,15 @@ def measure(label, ctx, level, nf, vals, grouping, reps):
         print(f"  group {d}: {n_d} fronts of F={F}, s={s}: factor + Lsb + Schur {t:.3f} ms, "
               f"{fl / 1e9:.3f} GFLOP, {fl / t / 1e9:.2f} TFLOP/s", flush=True)
         del A
-    return sym.ngroups, padded, ms, wide, nd
+    return sym.ngroups, padded, ms, replay_ms, wide, nd
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--cases", default="fem2d7,fem3d4")
+    ap.add_argument("--c-group", default=None,
+                    help="C_GROUP values (ms, comma-separated) to build the rule at")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("nd_group_cost_torch: no CUDA device is available", file=sys.stderr)
@@ -191,39 +210,46 @@ def main() -> int:
             syms[key] = nd.fz.sym
             del nd
             torch.cuda.empty_cache()
-    wide = [w for (key, _), r in res.items() if key == "fem3d4" for w in r[3]]
+    wide = [w for (key, _), r in res.items() if key == "fem3d4" for w in r[4]]
     if not wide:
-        wide = [w for r in res.values() for w in r[3]]
+        wide = [w for r in res.values() for w in r[4]]
     rate = sum(f for f, _ in wide) / sum(t for _, t in wide) * 1e3 if wide else ND.R_F64
     print(f"R_F64: {rate / 1e12:.3f} TFLOP/s pooled over {len(wide)} groups of at least "
           f"{WIDE} dofs", flush=True)
     c_group = {}
     for key in syms:
-        (g1, f1, t1, _), (g0, f0, t0, _) = res[key, "classes"], res[key, "depth"]
-        if g1 != g0:
-            c_group[key] = ((t1 - t0) / 1e3 - (f1 - f0) / rate) / (g1 - g0)
-            print(f"C_GROUP from {systems[key][0]}: {c_group[key] * 1e3:.4f} ms per group "
-                  f"(direction {t1:.3f} ms at {g1} groups, {t0:.3f} ms at {g0}; padded flops "
-                  f"{f1 / 1e9:.3f} and {f0 / 1e9:.3f} GFLOP)", flush=True)
-    c = c_group.get("fem2d7", next(iter(c_group.values()), ND.C_GROUP))
+        (g1, f1, e1, r1, _), (g0, f0, e0, r0, _) = res[key, "classes"], res[key, "depth"]
+        if g1 == g0:
+            continue
+        for side, t1, t0 in (("eager", e1, e0), ("replayed", r1, r0)):
+            c_group[key, side] = ((t1 - t0) / 1e3 - (f1 - f0) / rate) / (g1 - g0)
+            print(f"C_GROUP {side} from {systems[key][0]}: {c_group[key, side] * 1e3:.4f} ms per "
+                  f"group (direction {t1:.3f} ms at {g1} groups, {t0:.3f} ms at {g0}; padded "
+                  f"flops {f1 / 1e9:.3f} and {f0 / 1e9:.3f} GFLOP)", flush=True)
+    c = c_group.get(("fem2d7", "replayed"), ND.C_GROUP)
     for key, sym in syms.items():
         sep = [len(f.sep) for f in sym.fronts]
         bd = [len(f.bd) for f in sym.fronts]
         grid = []
-        for cg in (0.5 * c, c, 2 * c):
+        for cg in (0.25 * c, 0.5 * c, c, 2 * c, 4 * c):
             for r in (0.5 * rate, rate, 2 * rate):
                 ND.C_GROUP, ND.R_F64 = cg, r
                 groups = ND.front_groups(sep, bd, sym.depth_of, sym.nf, "cost")
                 grid.append(f"C {cg * 1e3:.3f} ms R {r / 1e12:.2f} TF/s: {len(groups)} groups, "
                             f"{depths_split(sym, groups)} split, "
                             f"{flops(sym, groups)[0] / 1e9:.2f} GFLOP")
-        print(f"{systems[key][0]} the rule over constants around the measured: "
+        print(f"{systems[key][0]} the rule over constants around the replayed C_GROUP: "
               + "; ".join(grid), flush=True)
-    ND.C_GROUP, ND.R_F64 = c, rate
-    for key in syms:
-        label, ctx, level, nf, vals = systems[key]
-        measure(label, ctx, level, nf, vals, "cost", args.reps)
-        torch.cuda.empty_cache()
+    ats = ([float(v) / 1e3 for v in args.c_group.split(",")] if args.c_group
+           else [C_GROUP_SOURCE, c])
+    for cg in ats:
+        ND.C_GROUP = ND.C_GROUP_REPLAY = cg
+        ND.R_F64 = rate
+        print(f"the rule at C_GROUP {cg * 1e3:.4f} ms, R_F64 {rate / 1e12:.3f} TFLOP/s:", flush=True)
+        for key in syms:
+            label, ctx, level, nf, vals = systems[key]
+            measure(label, ctx, level, nf, vals, "cost", args.reps)
+            torch.cuda.empty_cache()
     print(f"card: {card_line()}", flush=True)
     return 0
 
